@@ -1,0 +1,339 @@
+"""Constraint assembly, batched over envs: MuJoCo's soft-constraint model with
+a static row layout.
+
+Counterpart of gym_quadruped_tpu/physics/constraints.py (mj_makeConstraint /
+mj_projectConstraint). Two groups:
+
+  * simple rows: dof friction loss (Huber) and joint limits (one-sided), a
+    dense (B, ns, nv) Jacobian;
+  * cone blocks: elliptic contacts with condim > 1, a padded (B, C, 6, nv)
+    Jacobian per slot, culled to the `max_cone` nearest slots before assembly.
+
+Soft-constraint parameters per row:
+  x      = pos - margin
+  imp(x) = solimp spline, clamped to (1e-4, 1 - 1e-4)
+  aref   = -B (J qvel) - K imp x        (friction rows: no position term)
+  R      = max(1 - imp, 1e-4) / imp * diagApprox
+
+Ported: friction-loss rows, joint-limit rows and elliptic cone blocks. The
+pyramidal-cone and frictionless contact rows raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from gym_quadruped_tpu_torch.models.model import (
+    CONE_ELLIPTIC,
+    GEOM_HFIELD,
+    DeviceModel,
+    Model,
+)
+from gym_quadruped_tpu_torch.physics.collision import Contacts, contact_layout, make_frame
+from gym_quadruped_tpu_torch.physics.kinematics import Kin, ancestor_dof_mask, spatial_origin
+
+
+# ---------------------------------------------------------------------------------
+# static layout
+# ---------------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConstraintLayout:
+    """Static constraint structure (numpy)."""
+
+    fl_dofs: np.ndarray        # (nfl,)
+    lim_jnts: np.ndarray       # (nlim,)
+    n_fl: int
+    n_lim: int
+    elliptic: bool
+    # contact slots (parallel to the collision slot order)
+    con_condim: np.ndarray     # (S,)
+    con_mu: np.ndarray         # (S, 5)
+    con_solref: np.ndarray     # (S, 2)
+    con_solimp: np.ndarray     # (S, 5)
+    con_margin: np.ndarray     # (S,)
+    con_incl: np.ndarray       # (S,) inclusion threshold: margin, 0 for hfield pairs
+    con_body: np.ndarray       # (S,) robot body of geom2
+    con_body1: np.ndarray      # (S,) body of geom1 (0 for world pairs)
+    con_geom1: np.ndarray      # (S,) world geom id
+    con_geom2: np.ndarray      # (S,) robot geom id
+    con_prio: np.ndarray       # (S,) -1 geom1 wins, +1 geom2 wins, 0 equal
+    # derived
+    n_simple: int              # total simple rows
+    simple_unilateral: np.ndarray  # (n_simple,) bool (False: friction-loss row)
+    con_is_cone: np.ndarray    # (S,) bool, handled as a cone block
+    cone_slots: np.ndarray     # indices of cone slots
+    simple_con_slots: np.ndarray  # indices of slots emitted as simple rows
+    cone_dim_mask: np.ndarray  # (n_cone, 6)
+
+
+@functools.lru_cache(maxsize=64)
+def constraint_layout(m: Model) -> ConstraintLayout:
+    fl_dofs = np.where(np.asarray(m.dof_frictionloss) > 0)[0].astype(np.int32)
+    lim_jnts = np.where(np.asarray(m.jnt_limited))[0].astype(np.int32)
+    elliptic = int(m.cone) == CONE_ELLIPTIC
+
+    condims, mus, solrefs, solimps, margins, incls = [], [], [], [], [], []
+    bodies, bodies1, geom1s, geom2s, prios = [], [], [], [], []
+    for spec in contact_layout(m):
+        p1 = int(m.geom_priority[spec.geom1])
+        p2 = int(m.geom_priority[spec.geom2])
+        prio = 0 if p1 == p2 else (-1 if p1 > p2 else 1)
+        hfield_pair = int(m.geom_type[spec.geom1]) == GEOM_HFIELD
+        for _ in range(spec.ncon):
+            condims.append(spec.condim)
+            mus.append(spec.friction)
+            solrefs.append(spec.solref)
+            solimps.append(spec.solimp)
+            margins.append(spec.margin)
+            incls.append(0.0 if hfield_pair else spec.margin)
+            bodies.append(int(m.geom_bodyid[spec.geom2]))
+            bodies1.append(int(m.geom_bodyid[spec.geom1]))
+            geom1s.append(spec.geom1)
+            geom2s.append(spec.geom2)
+            prios.append(prio)
+    condims = np.array(condims, np.int32)
+    S = len(condims)
+    is_cone = np.array([elliptic and cd > 1 for cd in condims], bool)
+    cone_slots = np.where(is_cone)[0].astype(np.int32)
+    simple_slots = np.where(~is_cone)[0].astype(np.int32)
+
+    n_simple = len(fl_dofs) + len(lim_jnts)
+    for s in simple_slots:
+        cd = int(condims[s])
+        n_simple += 1 if cd == 1 else 2 * (cd - 1)
+    unilateral = np.ones(n_simple, bool)
+    unilateral[:len(fl_dofs)] = False
+
+    cone_dim_mask = np.zeros((len(cone_slots), 6), np.float64)
+    for i, s in enumerate(cone_slots):
+        cone_dim_mask[i, :int(condims[s])] = 1.0
+
+    return ConstraintLayout(
+        fl_dofs=fl_dofs, lim_jnts=lim_jnts,
+        n_fl=len(fl_dofs), n_lim=len(lim_jnts), elliptic=elliptic,
+        con_condim=condims,
+        con_mu=np.array(mus, np.float64).reshape(S, 5),
+        con_solref=np.array(solrefs, np.float64).reshape(S, 2),
+        con_solimp=np.array(solimps, np.float64).reshape(S, 5),
+        con_margin=np.array(margins, np.float64).reshape(S),
+        con_incl=np.array(incls, np.float64).reshape(S),
+        con_body=np.array(bodies, np.int32),
+        con_body1=np.array(bodies1, np.int32),
+        con_geom1=np.array(geom1s, np.int32),
+        con_geom2=np.array(geom2s, np.int32),
+        con_prio=np.array(prios, np.int32),
+        n_simple=n_simple,
+        simple_unilateral=unilateral,
+        con_is_cone=is_cone, cone_slots=cone_slots,
+        simple_con_slots=simple_slots,
+        cone_dim_mask=cone_dim_mask)
+
+
+@functools.lru_cache(maxsize=64)
+def con_mask_table(m: Model, lay: ConstraintLayout) -> np.ndarray:
+    """(S, nv) signed dof masks per slot, mask(body2) - mask(body1): the
+    contact Jacobian is the relative point-velocity Jacobian, so dofs shared
+    by both bodies cancel."""
+    m2 = np.stack([ancestor_dof_mask(m, int(b)) for b in lay.con_body])
+    m1 = np.stack([ancestor_dof_mask(m, int(b)) for b in lay.con_body1])
+    return m2 - m1
+
+
+# ---------------------------------------------------------------------------------
+# soft-constraint scalar model
+# ---------------------------------------------------------------------------------
+
+def impedance(solimp, x):
+    """Position-dependent impedance d(x) (solimp spline), clamped to (1e-4, 1-1e-4)."""
+    d0, d1, width, mid, power = solimp.unbind(-1)
+    y = torch.clamp_max(x.abs() / torch.clamp_min(width, 1e-12), 1.0)
+    lo = mid ** (1.0 - power) * y ** power
+    hi = 1.0 - (1.0 - mid) ** (1.0 - power) * (1.0 - y) ** power
+    z = torch.where(y < mid, lo, hi)
+    return torch.clamp(d0 + z * (d1 - d0), 1e-4, 1.0 - 1e-4)
+
+
+def kb(solref, solimp):
+    """Stiffness K and damping B from solref (negative solref = direct spec)."""
+    tc, dr = solref[..., 0], solref[..., 1]
+    d1 = solimp[..., 1]
+    K_std = 1.0 / torch.clamp_min(d1 * d1 * tc * tc * dr * dr, 1e-12)
+    B_std = 2.0 / torch.clamp_min(d1 * tc, 1e-12)
+    K_dir = -tc / torch.clamp_min(d1 * d1, 1e-12)
+    B_dir = -dr / torch.clamp_min(d1, 1e-12)
+    std = torch.minimum(tc, dr) > 0
+    return torch.where(std, K_std, K_dir), torch.where(std, B_std, B_dir)
+
+
+# ---------------------------------------------------------------------------------
+# assembled rows
+# ---------------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Efc:
+    """Assembled constraint rows, each with a leading env axis B: simple rows
+    plus the culled cone blocks."""
+
+    J: torch.Tensor             # (B, ns, nv)
+    aref: torch.Tensor          # (B, ns)
+    R: torch.Tensor             # (B, ns)
+    active: torch.Tensor        # (B, ns) bool
+    frictionloss: torch.Tensor  # (B, ns)
+    con_J: torch.Tensor         # (B, C, 6, nv)
+    con_aref: torch.Tensor      # (B, C, 6)
+    con_R: torch.Tensor         # (B, C, 6)
+    con_active: torch.Tensor    # (B, C) bool
+    cone_mu: torch.Tensor       # (B, C, 5)
+    cone_dim_mask: torch.Tensor  # (B, C, 6)
+    cone_dist: torch.Tensor     # (B, C)
+    cone_sel: torch.Tensor      # (B, C) int64 cone-slot index of each block
+
+
+def _point_jacobians_dyn(kin: Kin, cdof: torch.Tensor, pos: torch.Tensor,
+                         masks: torch.Tensor):
+    """Translational and rotational Jacobians (B, K, 3, nv) of K points per
+    env, each with its own signed dof mask (B, K, nv)."""
+    omega = cdof[..., :3]                                        # (B, nv, 3)
+    rel = pos - spatial_origin(kin)[:, None, :]                  # (B, K, 3)
+    vp = cdof[:, None, :, 3:] + torch.linalg.cross(
+        omega[:, None].expand(-1, rel.shape[1], -1, -1), rel[:, :, None, :])
+    masks_j = masks[..., None]
+    jacp = (vp * masks_j).transpose(2, 3)
+    jacr = (omega[:, None] * masks_j).transpose(2, 3)
+    return jacp, jacr
+
+
+def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
+             contacts: Contacts, cdof: torch.Tensor,
+             max_cone: int | None = None) -> Efc:
+    """Assemble constraint rows for B envs. With `max_cone`, only the
+    max_cone nearest cone slots of each env get Jacobians and rows (exact
+    whenever no more slots than that touch)."""
+    m = dm.m
+    lay = constraint_layout(m)
+    nv = m.nv
+    B = qpos.shape[0]
+    dtype = qpos.dtype
+    if len(lay.simple_con_slots):
+        raise NotImplementedError(
+            'pyramidal-cone and frictionless contact rows are not ported '
+            f'({m.robot}/{m.scene} has {len(lay.simple_con_slots)} such slots)')
+    J_rows, aref_rows, R_rows, act_rows, fl_rows = [], [], [], [], []
+
+    # ---- 1. dof friction loss --------------------------------------------------------
+    if lay.n_fl:
+        dofs = dm.const('fl_dofs', lambda: lay.fl_dofs)
+        solref = dm.const('fl_solref', lambda: m.dof_solref[lay.fl_dofs])
+        solimp = dm.const('fl_solimp', lambda: m.dof_solimp[lay.fl_dofs])
+        imp = impedance(solimp, torch.zeros_like(solimp[:, 0]))
+        _, Bd = kb(solref, solimp)
+        J_rows.append(dm.const('fl_J', lambda: np.eye(nv)[lay.fl_dofs]).expand(B, -1, -1))
+        aref_rows.append(-Bd * qvel[:, dofs])
+        R_rows.append((torch.clamp_min(1.0 - imp, 1e-4) / imp
+                       * dm.dof_invweight0[dofs]).expand(B, -1))
+        act_rows.append(torch.ones(B, lay.n_fl, dtype=torch.bool, device=qpos.device))
+        fl_rows.append(dm.dof_frictionloss[dofs].expand(B, -1))
+
+    # ---- 2. joint limits ---------------------------------------------------------------
+    if lay.n_lim:
+        jids = lay.lim_jnts
+        qadr = dm.const('lim_qadr', lambda: m.jnt_qposadr[jids])
+        dadr = dm.const('lim_dadr', lambda: m.jnt_dofadr[jids])
+        jrange = dm.const('lim_range', lambda: m.jnt_range[jids])
+        q = qpos[:, qadr]
+        dist_lo = q - jrange[:, 0]
+        dist_hi = jrange[:, 1] - q
+        low_side = dist_lo < dist_hi
+        dist = torch.where(low_side, dist_lo, dist_hi)
+        sign = torch.where(low_side, 1.0, -1.0).to(dtype)
+        Jl = sign[..., None] * dm.const('lim_J', lambda: np.eye(nv)[m.jnt_dofadr[jids]])
+        margin = dm.const('lim_margin', lambda: m.jnt_margin[jids])
+        solref = dm.const('lim_solref', lambda: m.jnt_solref[jids])
+        solimp = dm.const('lim_solimp', lambda: m.jnt_solimp[jids])
+        x = dist - margin
+        imp = impedance(solimp, x)
+        K, Bd = kb(solref, solimp)
+        J_rows.append(Jl)
+        aref_rows.append(-Bd * (sign * qvel[:, dadr]) - K * imp * x)
+        R_rows.append(torch.clamp_min(1.0 - imp, 1e-4) / imp * dm.dof_invweight0[dadr])
+        act_rows.append(dist < margin)
+        fl_rows.append(torch.zeros_like(dist))
+
+    # ---- 3. elliptic cone blocks, culled to the nearest max_cone slots ----------------
+    C_all = len(lay.cone_slots)
+    if C_all:
+        cs = lay.cone_slots
+        feat = contacts.feat[:, :, dm.const('cone_slots', lambda: cs)]  # (B, 7, C_all)
+        if max_cone is not None and max_cone < C_all:
+            sel = torch.topk(-feat[:, 0], max_cone, dim=1).indices     # (B, K)
+        else:
+            sel = torch.arange(C_all, device=qpos.device).expand(B, C_all)
+        K_ = sel.shape[1]
+        feat = torch.gather(feat, 2, sel[:, None, :].expand(B, 7, K_))
+        dist_c = feat[:, 0]
+        pos_c = feat[:, 1:4].transpose(1, 2)
+        n_c = feat[:, 4:7].transpose(1, 2)
+
+        def table(name, make):
+            """A static per-cone-slot table (C_all, ...) taken at sel."""
+            return dm.const(('cone', name), make)[sel]
+
+        masks_c = table('mask', lambda: con_mask_table(m, lay)[cs])
+        margin_c = table('margin', lambda: lay.con_margin[cs])
+        solimp_c = table('solimp', lambda: lay.con_solimp[cs])
+        solref_c = table('solref', lambda: lay.con_solref[cs])
+        incl_c = table('incl', lambda: lay.con_incl[cs])
+        inv_tc = table('inv_t', lambda: m.body_invweight0[lay.con_body[cs], 0]
+                       + m.body_invweight0[lay.con_body1[cs], 0])
+        mu = table('mu', lambda: lay.con_mu[cs])
+        dim_mask = table('dim_mask', lambda: lay.cone_dim_mask)
+
+        frame_c = make_frame(n_c)                                # (B, K, 3, 3)
+        jacp, jacr = _point_jacobians_dyn(kin, cdof, pos_c, masks_c)
+        dirs_c = torch.cat([frame_c @ jacp, frame_c @ jacr], 2)  # (B, K, 6, nv)
+        vel6_c = (dirs_c @ qvel[:, None, :, None])[..., 0]       # (B, K, 6)
+        x_c = dist_c - margin_c
+        imp_c = impedance(solimp_c, x_c)
+        K_c, B_c = kb(solref_c, solimp_c)
+        rimp_c = torch.clamp_min(1.0 - imp_c, 1e-4) / imp_c
+        aref_nc = -B_c * vel6_c[..., 0] - K_c * imp_c * x_c
+
+        con_J = dirs_c * dim_mask[..., None]
+        aref_f = -B_c[..., None] * vel6_c[..., 1:]               # friction: no K term
+        con_aref = torch.cat([aref_nc[..., None], aref_f], -1) * dim_mask
+        # R: normal = rimp inv_t; friction i = rimp inv_t (mu0/mu_i)^2 / impratio
+        R_fric = (rimp_c[..., None] * inv_tc[..., None]
+                  * (mu[..., :1] / torch.clamp_min(mu, 1e-12)) ** 2 / m.impratio)
+        con_R = torch.cat([(rimp_c * inv_tc)[..., None], R_fric], -1)
+        con_R = torch.where(dim_mask > 0, con_R, 1.0)
+        con_active = dist_c < incl_c
+    else:
+        z = qpos.new_zeros
+        con_J, con_aref, con_R = z(B, 0, 6, nv), z(B, 0, 6), qpos.new_ones(B, 0, 6)
+        con_active = torch.zeros(B, 0, dtype=torch.bool, device=qpos.device)
+        mu, dim_mask, dist_c = z(B, 0, 5), z(B, 0, 6), z(B, 0)
+        sel = torch.zeros(B, 0, dtype=torch.int64, device=qpos.device)
+
+    if J_rows:
+        J = torch.cat(J_rows, 1)
+        aref, R = torch.cat(aref_rows, 1), torch.cat(R_rows, 1)
+        active, fl = torch.cat(act_rows, 1), torch.cat(fl_rows, 1)
+    else:
+        J = qpos.new_zeros(B, 0, nv)
+        aref, R, fl = qpos.new_zeros(B, 0), qpos.new_zeros(B, 0), qpos.new_zeros(B, 0)
+        active = torch.zeros(B, 0, dtype=torch.bool, device=qpos.device)
+    return Efc(J=J, aref=aref, R=R, active=active, frictionloss=fl,
+               con_J=con_J, con_aref=con_aref, con_R=con_R, con_active=con_active,
+               cone_mu=mu, cone_dim_mask=dim_mask, cone_dist=dist_c, cone_sel=sel)
+
+
+def scatter_cone_forces(cone_sel: torch.Tensor, f_cone: torch.Tensor, C_all: int):
+    """(B, K) slot indices and (B, K, 6) culled forces -> (B, C_all, 6)
+    forces on the full slot axis (zero on culled slots)."""
+    out = f_cone.new_zeros(f_cone.shape[0], C_all, f_cone.shape[2])
+    return out.scatter_(1, cone_sel[..., None].expand_as(f_cone), f_cone)

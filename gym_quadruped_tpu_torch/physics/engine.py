@@ -1,0 +1,142 @@
+"""Forward dynamics and the semi-implicit Euler step, batched over envs.
+
+Counterpart of gym_quadruped_tpu/physics/engine.py (mj_forward / mj_step).
+Per step: FK -> cdof -> CRBA M -> RNE bias -> passive -> actuation -> smooth
+solve -> narrow phase -> constraint assembly -> Newton solve -> Euler with
+implicit joint damping. Every tensor has a leading env axis B; there is one
+batched implementation, held in the tests against both the reference's
+per-env `step` and its vmapped `step_batched`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from gym_quadruped_tpu_torch.models.model import FREE, HINGE, DeviceModel
+from gym_quadruped_tpu_torch.ops.spd_solve import spd_solve_batched
+from gym_quadruped_tpu_torch.physics import dynamics
+from gym_quadruped_tpu_torch.physics.collision import Contacts, collide
+from gym_quadruped_tpu_torch.physics.constraints import (
+    Efc,
+    constraint_layout,
+    make_efc,
+    scatter_cone_forces,
+)
+from gym_quadruped_tpu_torch.physics.kinematics import Kin, cdof as _cdof, fk
+from gym_quadruped_tpu_torch.physics.solver import solve
+from gym_quadruped_tpu_torch.utils.maths import quat_integrate
+
+# Newton iteration cap of the reference's step.
+DEFAULT_SOLVER_ITERS = 10
+
+# Cap on the cone contacts solved at once: exact whenever no more slots than
+# this touch (spot/flat has 10 slots).
+MAX_CONE_CONTACTS = 32
+
+
+@dataclasses.dataclass
+class Forward:
+    """Forward-dynamics results, each with a leading env axis B."""
+
+    kin: Kin
+    cdof: torch.Tensor            # (B, nv, 6)
+    M: torch.Tensor               # (B, nv, nv)
+    qfrc_bias: torch.Tensor       # (B, nv)
+    qfrc_passive: torch.Tensor    # (B, nv)
+    qfrc_actuator: torch.Tensor   # (B, nv)
+    qfrc_smooth: torch.Tensor     # (B, nv)
+    qacc_smooth: torch.Tensor     # (B, nv)
+    contacts: Contacts
+    efc: Efc
+    qacc: torch.Tensor            # (B, nv) constrained acceleration
+    efc_force: torch.Tensor       # (B, ns) simple-row forces
+    f_cone: torch.Tensor          # (B, C_all, 6) cone forces (contact frame)
+    qfrc_constraint: torch.Tensor  # (B, nv)
+
+
+def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
+            solver_iterations: int = DEFAULT_SOLVER_ITERS,
+            max_contacts: int = MAX_CONE_CONTACTS) -> Forward:
+    """mj_forward for B envs: qpos (B, nq), qvel (B, nv), ctrl (B, nu).
+    Its stages are named ranges for torch.profiler: smooth, contacts, newton."""
+    with record_function('smooth'):
+        kin = fk(dm, qpos)
+        cdof = _cdof(dm, kin)
+        M = dynamics.mass_matrix(dm, kin, cdof)
+        bias = dynamics.rne_bias(dm, kin, qvel, cdof)
+        passive = dynamics.passive_force(dm, qpos, qvel)
+        act = dynamics.actuator_force(dm, ctrl)
+        qfrc_smooth = passive + act - bias
+        qacc_smooth = spd_solve_batched(M, qfrc_smooth)
+    with record_function('contacts'):
+        contacts = collide(dm, kin)
+        efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, max_cone=max_contacts)
+    with record_function('newton'):
+        qacc, f_simple, f_cone, qfrc_constraint = solve(
+            M, qacc_smooth, efc, warmstart=warmstart, iterations=solver_iterations)
+    C_all = len(constraint_layout(dm.m).cone_slots)
+    if f_cone.shape[1] < C_all:   # culled forces back onto the full slot axis
+        f_cone = scatter_cone_forces(efc.cone_sel, f_cone, C_all)
+    return Forward(kin=kin, cdof=cdof, M=M, qfrc_bias=bias, qfrc_passive=passive,
+                   qfrc_actuator=act, qfrc_smooth=qfrc_smooth,
+                   qacc_smooth=qacc_smooth, contacts=contacts, efc=efc,
+                   qacc=qacc, efc_force=f_simple, f_cone=f_cone,
+                   qfrc_constraint=qfrc_constraint)
+
+
+def integrate_pos(dm: DeviceModel, qpos, qvel, h: float) -> torch.Tensor:
+    """mj_integratePos: position update on the quaternion manifold."""
+    m = dm.m
+    out = qpos.clone()
+    for j in np.flatnonzero(m.jnt_type == FREE):
+        qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+        out[:, qadr:qadr + 3] = qpos[:, qadr:qadr + 3] + h * qvel[:, dadr:dadr + 3]
+        out[:, qadr + 3:qadr + 7] = quat_integrate(
+            qpos[:, qadr + 3:qadr + 7], qvel[:, dadr + 3:dadr + 6], h)
+    qadr = dm.const('hinge_qadr', lambda: m.jnt_qposadr[m.jnt_type == HINGE])
+    dadr = dm.const('hinge_dof', lambda: m.jnt_dofadr[m.jnt_type == HINGE])
+    if qadr.numel():
+        out[:, qadr] = qpos[:, qadr] + h * qvel[:, dadr]
+    return out
+
+
+def euler(dm: DeviceModel, qpos, qvel, fwd: Forward):
+    """mj_Euler: semi-implicit Euler with implicit joint damping, which
+    solves (M + h diag(damping)) for the velocity update (profiler range
+    `euler`)."""
+    h = dm.timestep
+    with record_function('euler'):
+        qfrc = fwd.qfrc_smooth + fwd.qfrc_constraint
+        if np.any(dm.m.dof_damping > 0):
+            hB = dm.const('h_damping', lambda: h * np.diag(dm.m.dof_damping))
+            qacc_int = spd_solve_batched(fwd.M + hB, qfrc)
+        else:
+            qacc_int = fwd.qacc
+        qvel_new = qvel + h * qacc_int
+        return integrate_pos(dm, qpos, qvel_new, h), qvel_new
+
+
+def step_batched(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
+                 solver_iterations: int = DEFAULT_SOLVER_ITERS,
+                 max_contacts: int = MAX_CONE_CONTACTS):
+    """mj_step for B envs: returns (qpos', qvel', Forward at the old state)
+    on the model's device. Thread `fwd.qacc` back in as the next step's
+    `warmstart`."""
+    fwd = forward(dm, qpos, qvel, ctrl, warmstart, solver_iterations, max_contacts)
+    qpos_new, qvel_new = euler(dm, qpos, qvel, fwd)
+    return qpos_new, qvel_new, fwd
+
+
+def step(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
+         solver_iterations: int = DEFAULT_SOLVER_ITERS,
+         max_contacts: int = MAX_CONE_CONTACTS):
+    """One env: qpos (nq,), qvel (nv,), ctrl (nu,). `step_batched` on a batch
+    of one; the returned Forward keeps its batch axis of one."""
+    ws = None if warmstart is None else warmstart[None]
+    qp, qv, fwd = step_batched(dm, qpos[None], qvel[None], ctrl[None], ws,
+                               solver_iterations, max_contacts)
+    return qp[0], qv[0], fwd

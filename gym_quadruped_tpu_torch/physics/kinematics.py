@@ -1,0 +1,165 @@
+"""Forward kinematics over the kinematic tree, batched over envs.
+
+Counterpart of gym_quadruped_tpu/physics/kinematics.py (MuJoCo's
+mj_kinematics / mj_comPos). Every tensor has a leading env axis B; the
+per-body loop runs over the static tree in Python. The shipped models use free
+and hinge joints only, one joint per body; other joint types raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from gym_quadruped_tpu_torch.models.model import FREE, HINGE, DeviceModel, Model
+from gym_quadruped_tpu_torch.utils.maths import (
+    quat_from_axis_angle,
+    quat_mul,
+    quat_normalize,
+    quat_rotate,
+    quat_to_mat,
+)
+
+
+@dataclasses.dataclass
+class Kin:
+    """World-frame pose quantities, each with a leading env axis B."""
+
+    xpos: torch.Tensor        # (B, nbody, 3) body frame origin
+    xquat: torch.Tensor       # (B, nbody, 4) body frame orientation
+    xipos: torch.Tensor       # (B, nbody, 3) body CoM position
+    ximat: torch.Tensor       # (B, nbody, 3, 3) inertial frame orientation
+    xanchor: torch.Tensor     # (B, njnt, 3) joint anchor
+    xaxis: torch.Tensor       # (B, njnt, 3) joint axis
+    geom_xpos: torch.Tensor   # (B, ngeom, 3)
+    geom_xmat: torch.Tensor   # (B, ngeom, 3, 3)
+    site_xpos: torch.Tensor   # (B, nsite, 3)
+    site_xmat: torch.Tensor   # (B, nsite, 3, 3)
+    subtree_com: torch.Tensor  # (B, nbody, 3) CoM of each body's subtree
+
+
+def check_joints(m: Model):
+    """Raise for a tree this port does not cover yet (ball or slide joints,
+    several joints on one body)."""
+    bad = sorted({int(t) for t in m.jnt_type} - {FREE, HINGE})
+    if bad:
+        raise NotImplementedError(f'joint types {bad} (ball=1, slide=2) are not ported')
+    if m.nbody > 1 and int(np.max(m.body_jntnum)) > 1:
+        raise NotImplementedError('bodies with more than one joint are not ported')
+
+
+def subtree_matrix(m: Model) -> np.ndarray:
+    """(nbody, nbody) 0/1: [p, b] = 1 iff body b lies in the subtree of p."""
+    S = np.eye(m.nbody)
+    for b in range(m.nbody - 1, 0, -1):
+        S[int(m.body_parentid[b])] += S[b]
+    return S
+
+
+def fk(dm: DeviceModel, qpos: torch.Tensor) -> Kin:
+    """mj_kinematics: body/geom/site world poses from qpos (B, nq)."""
+    m = dm.m
+    check_joints(m)
+    B = qpos.shape[0]
+    dtype, dev = qpos.dtype, qpos.device
+    qpos0 = dm.qpos0
+
+    xpos = [torch.zeros(B, 3, dtype=dtype, device=dev)]
+    xquat = [dm.const('quat_identity', lambda: np.array([1.0, 0.0, 0.0, 0.0])).expand(B, 4)]
+    xanchor = [None] * m.njnt
+    xaxis = [None] * m.njnt
+
+    for b in range(1, m.nbody):
+        p = int(m.body_parentid[b])
+        pos = xpos[p] + quat_rotate(xquat[p], dm.body_pos[b])
+        quat = quat_mul(xquat[p], dm.body_quat[b])
+        for j in range(int(m.body_jntadr[b]), int(m.body_jntadr[b]) + int(m.body_jntnum[b])):
+            qadr = int(m.jnt_qposadr[j])
+            if int(m.jnt_type[j]) == FREE:
+                pos = qpos[:, qadr:qadr + 3]
+                quat = quat_normalize(qpos[:, qadr + 3:qadr + 7])
+                xanchor[j] = pos
+                xaxis[j] = dm.jnt_axis[j].expand(B, 3)  # free axis is not rotated
+            else:  # HINGE
+                anchor = pos + quat_rotate(quat, dm.jnt_pos[j])
+                qloc = quat_from_axis_angle(dm.jnt_axis[j], qpos[:, qadr] - qpos0[qadr])
+                quat = quat_mul(quat, qloc)
+                pos = anchor - quat_rotate(quat, dm.jnt_pos[j])
+                xanchor[j] = anchor
+                xaxis[j] = quat_rotate(quat, dm.jnt_axis[j])
+        xpos.append(pos)
+        xquat.append(quat)
+
+    xpos = torch.stack(xpos, 1)
+    xquat = torch.stack(xquat, 1)
+
+    xipos = xpos + quat_rotate(xquat, dm.body_ipos)
+    ximat = quat_to_mat(quat_mul(xquat, dm.body_iquat))
+
+    gb = dm.const('geom_bodyid', lambda: m.geom_bodyid)
+    geom_xpos = xpos[:, gb] + quat_rotate(xquat[:, gb], dm.geom_pos)
+    geom_xmat = quat_to_mat(quat_mul(xquat[:, gb], dm.geom_quat))
+    if m.nsite > 0:
+        sb = dm.const('site_bodyid', lambda: m.site_bodyid)
+        site_xpos = xpos[:, sb] + quat_rotate(xquat[:, sb], dm.site_pos)
+        site_xmat = quat_to_mat(quat_mul(xquat[:, sb], dm.site_quat))
+    else:
+        site_xpos = xpos.new_zeros(B, 0, 3)
+        site_xmat = xpos.new_zeros(B, 0, 3, 3)
+
+    # subtree CoM (mj_comPos): mass-weighted sums over each body's subtree
+    S = dm.const('subtree', lambda: subtree_matrix(m))
+    sub_mass = S @ dm.body_mass                                   # (nbody,)
+    sub_mom = torch.einsum('pb,nbk->npk', S, dm.body_mass[:, None] * xipos)
+    subtree_com = sub_mom / torch.clamp_min(sub_mass, 1e-12)[:, None]
+
+    return Kin(xpos=xpos, xquat=xquat, xipos=xipos, ximat=ximat,
+               xanchor=torch.stack(xanchor, 1), xaxis=torch.stack(xaxis, 1),
+               geom_xpos=geom_xpos, geom_xmat=geom_xmat,
+               site_xpos=site_xpos, site_xmat=site_xmat,
+               subtree_com=subtree_com)
+
+
+def spatial_origin(kin: Kin) -> torch.Tensor:
+    """(B, 3) reference point of all (omega; v) spatial vectors: the robot CoM
+    (the world body is massless, so subtree_com[:, 0] is the robot's)."""
+    return kin.subtree_com[:, 0]
+
+
+def cdof(dm: DeviceModel, kin: Kin) -> torch.Tensor:
+    """(B, nv, 6) per-dof motion subspace vectors (omega; v) about
+    spatial_origin(kin). Free-joint angular dofs are the body-frame axes."""
+    m = dm.m
+    B = kin.xpos.shape[0]
+    c = spatial_origin(kin)
+    out = kin.xpos.new_empty(B, m.nv, 6)
+    for j in range(m.njnt):
+        adr = int(m.jnt_dofadr[j])
+        if int(m.jnt_type[j]) == FREE:
+            b = int(m.jnt_bodyid[j])
+            out[:, adr:adr + 3] = dm.const('eye3x6', lambda: np.eye(3, 6, 3))
+            R = quat_to_mat(kin.xquat[:, b])                   # (B, 3, 3)
+            axes = R.transpose(1, 2)                           # rows: body axes
+            p = (kin.xpos[:, b] - c)[:, None, :].expand(B, 3, 3)
+            out[:, adr + 3:adr + 6] = torch.cat(
+                [axes, torch.linalg.cross(p, axes)], -1)
+    hinge = dm.const('hinge_jnt', lambda: np.flatnonzero(m.jnt_type == HINGE))
+    hdof = dm.const('hinge_dof', lambda: m.jnt_dofadr[m.jnt_type == HINGE])
+    if hinge.numel():
+        axis = kin.xaxis[:, hinge]
+        arm = kin.xanchor[:, hinge] - c[:, None, :]
+        out[:, hdof] = torch.cat([axis, torch.linalg.cross(arm, axis)], -1)
+    return out
+
+
+def ancestor_dof_mask(m: Model, body_id: int) -> np.ndarray:
+    """Static 0/1 mask (nv,) of the dofs on the chain from the world to body."""
+    mask = np.zeros(m.nv, np.float64)
+    b = body_id
+    while b > 0:
+        adr, num = int(m.body_dofadr[b]), int(m.body_dofnum[b])
+        mask[adr:adr + num] = 1.0
+        b = int(m.body_parentid[b])
+    return mask
