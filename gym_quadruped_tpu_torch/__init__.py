@@ -2,7 +2,8 @@
 
 Entry point: `physics.engine.step_batched(model, qpos, qvel, ctrl)` on a model
 from `models.model.load_model(robot, scene, device=...)`. Every tensor carries
-a leading env-batch axis. The batched tiny-SPD solve runs as a hand-written
-CUDA kernel (`csrc/spd_solve.cu`) on the card and as its plain PyTorch version
-on the CPU.
+a leading env-batch axis. Two hand-written CUDA kernels run on the card, each
+with its plain PyTorch version on the CPU: the batched tiny-SPD solve
+(`csrc/spd_solve.cu`) and the fused Newton contact solve
+(`csrc/newton_fused.cu`).
 """

@@ -19,20 +19,14 @@ and loaded with ctypes. `launches` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from gym_quadruped_tpu_torch.ops.nvcc import build_library
+
 MAX_N = 32
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'spd_solve.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 launches = 0   # kernel launches since the count was last set to 0
 _lib = None
@@ -68,30 +62,10 @@ def unrolled_chol_solve_torch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _nvcc() -> str:
-    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: the CUDA kernel needs the CUDA toolkit')
-    return path
-
-
 def build() -> tuple[Path, float, str]:
     """Compile csrc/spd_solve.cu for sm_90a if its library is missing.
     Returns (library path, seconds spent, nvcc's output)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f'libspd_solve_{tag}.so'
-    if lib.exists():
-        return lib, 0.0, ''
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}')
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return build_library(SOURCE)
 
 
 def _library():

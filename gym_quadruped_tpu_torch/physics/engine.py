@@ -3,9 +3,12 @@
 Counterpart of gym_quadruped_tpu/physics/engine.py (mj_forward / mj_step).
 Per step: FK -> cdof -> CRBA M -> RNE bias -> passive -> actuation -> smooth
 solve -> narrow phase -> constraint assembly -> Newton solve -> Euler with
-implicit joint damping. Every tensor has a leading env axis B; there is one
-batched implementation, held in the tests against both the reference's
-per-env `step` and its vmapped `step_batched`.
+implicit joint damping. On the card the smooth solve and the damped Euler
+update each launch the SPD kernel once and the Newton solve launches the
+fused Newton kernel once; on the CPU the same calls run their plain
+versions. Every tensor has a leading env axis B; there is one batched
+implementation, held in the tests against both the reference's per-env
+`step` and its vmapped `step_batched`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from gym_quadruped_tpu_torch.models.model import FREE, HINGE, DeviceModel
+from gym_quadruped_tpu_torch.ops import newton_fused
 from gym_quadruped_tpu_torch.ops.spd_solve import spd_solve_batched
 from gym_quadruped_tpu_torch.physics import dynamics
 from gym_quadruped_tpu_torch.physics.collision import Contacts, collide
@@ -27,7 +31,6 @@ from gym_quadruped_tpu_torch.physics.constraints import (
     scatter_cone_forces,
 )
 from gym_quadruped_tpu_torch.physics.kinematics import Kin, cdof as _cdof, fk
-from gym_quadruped_tpu_torch.physics.solver import solve
 from gym_quadruped_tpu_torch.utils.maths import quat_integrate
 
 # Newton iteration cap of the reference's step.
@@ -75,8 +78,8 @@ def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
     with record_function('contacts'):
         contacts = collide(dm, kin)
         efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, max_cone=max_contacts)
-    with record_function('newton'):
-        qacc, f_simple, f_cone, qfrc_constraint = solve(
+    with record_function('newton'):   # one launch of the fused kernel on the card
+        qacc, f_simple, f_cone, qfrc_constraint = newton_fused.solve_batched(
             M, qacc_smooth, efc, warmstart=warmstart, iterations=solver_iterations)
     C_all = len(constraint_layout(dm.m).cone_slots)
     if f_cone.shape[1] < C_all:   # culled forces back onto the full slot axis

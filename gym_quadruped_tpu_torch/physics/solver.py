@@ -17,6 +17,12 @@ zones:
 Each Newton iteration solves H p = -g with the batched SPD solve (the CUDA
 kernel on the card), then takes a step length from a 15-point grid on the
 convex 1-D derivative followed by 6 bisections.
+
+`solve` is the plain version of the fused Newton kernel
+(ops/newton_fused.py, csrc/newton_fused.cu), which runs this whole loop in
+one launch. The physics step reaches `solve` through that wrapper: on CPU
+tensors it runs this loop; on the card the kernel runs instead, and this
+eager loop serves only to check and time it.
 """
 
 from __future__ import annotations
@@ -143,17 +149,24 @@ def _mtv(A, y):
 
 
 def solve(M, a_smooth, efc: Efc, warmstart=None, iterations: int = 10,
-          ls_iterations: int = 6):
+          ls_iterations: int = 6, iterations_out=None, *, _tol=None):
     """Returns (qacc, f_simple, f_cone, qfrc_constraint), each batched.
 
     `iterations` caps the Newton loop. An env whose accepted step falls below
     _TOL (1 + |qacc|_inf) is done and its qacc frozen, as under the
     reference's vmapped while_loop. The loop ends when every env is done (one
-    host sync per iteration) or at the cap."""
+    host sync per iteration) or at the cap. `iterations_out`, an int32 (B,)
+    tensor, receives each env's count of Newton iterations.
+
+    This is the plain version of the fused kernel (ops/newton_fused.py);
+    `_tol=0` is its fixed-count form, which runs every env `iterations`
+    times."""
     dtype = a_smooth.dtype
     B, nv = a_smooth.shape
     C = efc.con_J.shape[1]
     if efc.J.shape[1] == 0 and C == 0:
+        if iterations_out is not None:
+            iterations_out.zero_()
         return a_smooth, a_smooth.new_zeros(B, 0), a_smooth.new_zeros(B, 0, 6), \
             torch.zeros_like(a_smooth)
 
@@ -183,13 +196,15 @@ def solve(M, a_smooth, efc: Efc, warmstart=None, iterations: int = 10,
                 _mv(cJ_flat, a).reshape(B, C, 6) - efc.con_aref)
 
     a = a_smooth if warmstart is None else warmstart
-    tol = _TOL.get(dtype, 1e-6)
+    tol = _TOL.get(dtype, 1e-6) if _tol is None else _tol
     grid = _ls_grid(dtype, a.device)
     trace_M = torch.diagonal(M, 0, 1, 2).sum(-1)
     reg = (1e-10 * trace_M / nv)[:, None, None] * torch.eye(nv, dtype=dtype, device=a.device)
     done = torch.zeros(B, dtype=torch.bool, device=a.device)
+    n_iter = torch.zeros(B, dtype=torch.int32, device=a.device)
 
     for _ in range(iterations):
+        n_iter += ~done
         us, uc = rows(a)
         fs, fc = forces(us, uc)
         r = a - a_smooth
@@ -236,4 +251,6 @@ def solve(M, a_smooth, efc: Efc, warmstart=None, iterations: int = 10,
     us, uc = rows(a)
     fs, fc = forces(us, uc)
     qfrc = _mtv(efc.J, fs) + _mtv(cJ_flat, fc.reshape(B, C * 6))
+    if iterations_out is not None:
+        iterations_out.copy_(n_iter)
     return a, fs, fc, qfrc

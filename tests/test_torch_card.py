@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA SPD kernel against its plain version, and a
-short f32 run of the step on the card against the same steps in f64 on the
-CPU. Every test here needs an NVIDIA GPU and skips without one.
+"""The port on the card: the CUDA SPD kernel and the fused Newton kernel
+against their plain versions, and a short f32 run of the step on the card
+against the same steps in f64 on the CPU. Every test here needs an NVIDIA
+GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from gym_quadruped_tpu_torch.models.model import load_model
+from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
-from gym_quadruped_tpu_torch.physics import engine
+from gym_quadruped_tpu_torch.physics import engine, solver
 
 
 @pytest.fixture
@@ -50,6 +52,33 @@ def test_kernel_raises_on_f64(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('B', [64, 4097])
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_matches_plain(card, B, form):
+    # soft contact states, which f32 Newton solves to convergence: the
+    # keyframe lowered up to 5 mm, qvel 0, small torques
+    dm = load_model('spot', 'flat', device=card)
+    rng = np.random.RandomState(B)
+    qpos = np.tile(dm.m.key_qpos[0], (B, 1))
+    qpos[:, 2] -= rng.uniform(0, 0.005, B)
+    ctrl = rng.uniform(-0.5, 0.5, (B, dm.m.nu))
+    as_card = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)
+    fwd = engine.forward(dm, as_card(qpos), torch.zeros(B, dm.m.nv, device=card),
+                         as_card(ctrl))
+    assert bool(fwd.efc.con_active.any())
+    before = nf.launches
+    got = getattr(nf, form)(fwd.M, fwd.qacc_smooth, fwd.efc)
+    torch.cuda.synchronize()
+    assert nf.launches == before + 1
+    ref = solver.solve(fwd.M, fwd.qacc_smooth, fwd.efc,
+                       _tol=0.0 if form == 'solve_batched_bt' else None)
+    # the plain version's own f32 rounding differs: 1e-4 of 1 + max|ref|
+    for g, r in zip(got, ref):
+        err = ((g - r).abs().max() / (1 + r.abs().max())).item()
+        assert err < 1e-4, err
+
+
+@pytest.mark.cuda
 def test_step_on_card_matches_cpu_f64(card):
     B, T = 64, 20
     dm = load_model('spot', 'flat', device=card)
@@ -59,7 +88,7 @@ def test_step_on_card_matches_cpu_f64(card):
     q, v, w = (torch.as_tensor(x, dtype=torch.float32, device=card)
                for x in (qpos, np.zeros((B, 18)), np.zeros((B, 18))))
     q64, v64, w64 = (torch.as_tensor(x) for x in (qpos, np.zeros((B, 18)), np.zeros((B, 18))))
-    spd.launches = 0
+    spd.launches = nf.launches = 0
     for t in range(T):
         q, v, f = engine.step_batched(dm, q, v, torch.as_tensor(
             ctrls[t], dtype=torch.float32, device=card), warmstart=w)
@@ -67,7 +96,10 @@ def test_step_on_card_matches_cpu_f64(card):
         q64, v64, f64 = engine.step_batched(dm64, q64, v64, torch.as_tensor(ctrls[t]),
                                             warmstart=w64)
         w64 = f64.qacc
-    assert 2 * T <= spd.launches <= 12 * T
+    # per step: the smooth solve and Euler on the SPD kernel, the Newton
+    # solve in one launch of the fused kernel
+    assert spd.launches == 2 * T
+    assert nf.launches == T
     assert bool(f.efc.con_active.any())
     # f32 against f64 over 20 steps of 2 ms: far inside the 1e-3 qpos bar
     err = (q.double().cpu() - q64).abs().max().item()
