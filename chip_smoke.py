@@ -2,20 +2,35 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --newton-agreement   # phases 1 and 5 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
      TF32 off for matmuls and cuDNN;
-  2. build csrc/spd_solve.cu and csrc/newton_fused.cu with nvcc for sm_90a,
-     one nvcc each, in parallel (print seconds and ptxas);
+  2. build the kernels with nvcc for sm_90a, one nvcc for each source and
+     size, all in parallel: csrc/spd_solve.cu for n = 18, 7 and 32 (the sizes
+     of phase 3) and csrc/newton_fused.cu for nv = 18 (print seconds and
+     ptxas), and each kernel's residency per SM at the main path's sizes from
+     the CUDA occupancy query;
   3. the SPD kernel against its plain version and a float64 solve on seeded
      SPD systems at (4096, 18), (4097, 18), (100, 7) and (64, 32);
-  4. SPD timings at (4096, 18) with CUDA events: kernel, plain version,
-     torch.linalg.solve (yardstick only) and the memory/compute bound;
+  4. SPD timings at (4096, 18) with CUDA events: the kernel (launched
+     through its C entry point with its arguments made once, since the
+     Python wrapper's own host time per call now exceeds the kernel's),
+     the wrapper, the plain version, torch.linalg.solve (yardstick only)
+     and the memory/compute bound;
   5. the fused Newton kernel against its plain version (the eager
      `solver.solve` on the card) in both forms (per-env stopping and a fixed
-     count), from a_smooth and from zeros, on seeded soft spot/flat contact
-     states at B=4096 and B=4097; repeated launches bitwise identical;
+     count), from a_smooth and from zeros, at B=4096 and B=4097, on three
+     cases: seeded soft spot/flat contact states; the same with one hip
+     joint of about a quarter of the envs set past its range (active and
+     inactive joint-limit rows side by side); and those states with every
+     row sliced away (ns = C = 0). The same iteration counts in all but a
+     few envs, zero forces on inactive rows, repeated launches bitwise
+     identical. With --newton-agreement this phase runs alone after phase 1
+     and prints its failures instead of raising (exit code 1 if any), so that
+     a copy of this script run in another checkout reads that checkout's
+     kernel on the same seeded states;
   6. the main path: spot/flat, B=4096, f32, 200 steps of `step_batched` from
      the keyframe with seeded U(-2, 2) torques and the qacc warm start; every
      state finite, contacts active, exactly 2 SPD and 1 Newton kernel
@@ -23,8 +38,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   7. card against CPU: 16 envs stepped 20 times in f64 on the CPU through the
      same functions, from the card's states at steps 0 and 100;
   8. Newton timings on the main path's last step inputs, in both forms: the
-     fused kernel, the eager `solver.solve` on the card (the previous Newton
-     stage) and the bound from the iterations the kernel ran;
+     fused kernel (through its C entry point, as in phase 4, and through
+     the wrapper), the eager `solver.solve` on the card (the previous Newton
+     stage) and two bounds from the iterations the kernel ran: the dense
+     count over every row at full width, and the count of what these inputs
+     need, over the active rows and blocks and their nonzeros (the one the
+     kernels line reports);
   9. a device profile of 3 steps: busy share, kernel launches per step, host
      and device time of the step's stages (smooth, contacts, newton, euler)
      and of the port's two kernels, top kernels.
@@ -34,8 +53,11 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -46,6 +68,7 @@ from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import engine, solver
+from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
 
 SEED = 0
 BATCH = 4096
@@ -58,6 +81,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # the fused kernel against the eager solve: relative to 1 + max|reference|
 NEWTON_BAR = 1e-4
+# Iteration counts against the eager solve. The two f32 solves round apart by
+# ~3e-7 of 1 + max|qacc|, the order of the converged step (tol 1e-6 of the
+# same), so an env near convergence may stop one iteration apart either way
+# (about 1% of the envs, with this kernel and with the one-block-per-env
+# kernel it replaced; PERF.md): at most 2% of the envs may differ, and the
+# mean by at most 0.01.
+ITERATION_ENVS_BAR = 0.02
+ITERATION_MEAN_BAR = 0.01
 LS_ITERATIONS = 6
 
 
@@ -100,21 +131,34 @@ def bound(n_bytes, n_flop):
     return max(t_bytes, t_flop) * 1e3, 'bytes' if t_bytes >= t_flop else 'operations'
 
 
-def soft_state(dm, gen, B):
+def soft_state(dm, gen, B, limits=False):
     """M, a_smooth and the rows of B seeded spot/flat states: the keyframe
-    lowered U(0, 5) mm into the floor, qvel 0, U(-0.5, 0.5) torques."""
+    lowered U(0, 5) mm into the floor, qvel 0, U(-0.5, 0.5) torques. With
+    `limits`, the first limited joint (a hip) of about a quarter of the envs
+    sits 0.01 rad past the top of its range."""
     m = dm.m
     qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device='cuda').repeat(B, 1)
     qpos[:, 2] -= 0.005 * torch.rand(B, generator=gen, device='cuda')
     ctrl = torch.rand(B, m.nu, generator=gen, device='cuda') - 0.5
+    if limits:
+        j = constraint_layout(m).lim_jnts[0]
+        past = torch.rand(B, generator=gen, device='cuda') < 0.25
+        qpos[past, int(m.jnt_qposadr[j])] = float(m.jnt_range[j, 1]) + 0.01
     fwd = engine.forward(dm, qpos, torch.zeros(B, m.nv, device='cuda'), ctrl)
     return fwd.M, fwd.qacc_smooth, fwd.efc
 
 
+def without_rows(efc):
+    """The same Efc with every simple row and cone block sliced away."""
+    return dataclasses.replace(efc, **{f.name: getattr(efc, f.name)[:, :0].contiguous()
+                                       for f in dataclasses.fields(efc)})
+
+
 def newton_flop(nv, ns, C, env_iterations, B, ls=LS_ITERATIONS):
-    """Floating-point operations of the fused Newton solve, counted from its
-    code (csrc/newton_fused.cu): per env and iteration, times the iterations
-    the envs ran, plus the final forces once per env."""
+    """Floating-point operations of a dense Newton solve, which ignores the
+    data: every simple row and cone block active, every product over all its
+    entries. Per env and iteration, times the iterations the envs ran, plus
+    the final forces once per env."""
     rows = ns + 6 * C
     chol = sum(2 + (nv - 1 - j) + (nv - 1 - j) * (nv - j) for j in range(nv))
     per_iteration = (
@@ -130,8 +174,104 @@ def newton_flop(nv, ns, C, env_iterations, B, ls=LS_ITERATIONS):
     return env_iterations * per_iteration + B * final
 
 
-def main():
-    # ---- 1. the card ---------------------------------------------------------------
+def newton_needed_work(M, efc, iterations, ls=LS_ITERATIONS):
+    """(FLOP, bytes) that these inputs need. FLOP: per env and iteration,
+    times the iterations it ran, plus its final forces, with every product
+    counted over the entries it needs: the active simple rows, the unmasked
+    rows (cone_dim_mask) of the active cone blocks, the nonzeros of each such
+    row of J, the nonzeros of M, and in H the pairs of dofs that one such row
+    or block touches (a simple row of one nonzero adds to one diagonal
+    entry). The Cholesky is counted dense: under the dofs' order its factor
+    fills in. Bytes: M, a_smooth, the warm start, the masks, the grid, the
+    active rows' inputs and every output, each once."""
+    f64 = torch.float64
+    B, nv = M.shape[0], M.shape[1]
+    na = efc.active.sum(1).to(f64)
+    nc = efc.con_active.sum(1).to(f64)
+    s = ((efc.J != 0).sum(2) * efc.active).to(f64)            # nonzeros per simple row
+    rows = efc.con_active[:, :, None] & (efc.cone_dim_mask != 0)   # needed cone rows
+    nz = (efc.con_J != 0) & rows[..., None]
+    dc = rows.sum(2).to(f64)                                     # needed rows per block
+    kc = nz.any(2).sum(2).to(f64)                                # dofs per block
+    S = s.sum(1) + nz.sum((1, 2, 3)).to(f64)                     # nonzeros of needed rows
+    R = na + dc.sum(1)                                           # needed rows
+    nzM = (M != 0).sum((1, 2)).to(f64)
+    chol = sum(2 + (nv - 1 - j) + (nv - 1 - j) * (nv - j) for j in range(nv))
+    per_iteration = (
+        2 * S + R + nv                                           # rows, a - a_smooth
+        + 12 * na + 340 * nc                                     # forces, curvatures
+        + 2 * nzM + 2 * S + 2 * nv                               # g
+        + (2 * dc * dc * kc).sum(1)                              # Hc cJ
+        + (3 * s * (s + 1) / 2).sum(1)                           # J' diag(cw) J
+        + (dc * kc * (kc + 1)).sum(1) + 2 * nv                   # cJ' Hc cJ, M + ., reg
+        + chol + 2 * nv * nv + nv                                # Cholesky, solves
+        + 2 * nzM + 2 * S + 4 * nv                               # M p, J p, p'M p, p'M r
+        + (15 + ls) * (10 * na + 84 * nc + 6) + 30 + 4 * nv + 2)  # line search, update
+    final = 4 * S + R + 6 * na + 60 * nc
+    flop = (iterations.to(f64) * per_iteration + final).sum().item()
+    ns, C = efc.J.shape[1], efc.con_J.shape[1]
+    floats = (B * (nv * nv + 2 * nv) + 15 + na.sum().item() * (nv + 3)
+              + nc.sum().item() * (6 * nv + 6 + 6 + 5 + 6)       # inputs
+              + B * (2 * nv + ns + 6 * C))                         # outputs
+    return flop, 4 * floats + B * (ns + C)
+
+
+def newton_agreement(dm):
+    """Phase 5: the fused Newton kernel against the eager `solver.solve` on
+    the card. Returns (the max abs qacc difference of the soft B=4096
+    per-env case from a_smooth, the bars each case failed)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    newton_abs_err = None
+    failures = []
+    forms = (('solve_batched', nf.solve_batched, None),
+             ('solve_batched_bt', nf.solve_batched_bt, 0.0))
+    for B in (BATCH, BATCH + 1):
+        soft = soft_state(dm, gen, B)
+        M, a_s, efc = soft_state(dm, gen, B, limits=True)
+        cases = (('soft', *soft), ('active limits', M, a_s, efc),
+                 ('ns = C = 0', M, a_s, without_rows(efc)))
+        for case, M, a_s, efc in cases:
+            log(5, f'B={B} {case}: ns={efc.J.shape[1]}, C={efc.con_J.shape[1]}, active simple '
+                   f'rows per env {efc.active.sum(1).float().mean().item():.3f}, active cone '
+                   f'blocks per env {efc.con_active.sum(1).float().mean().item():.3f}')
+            for form, fn, tol in forms:
+                for start, warm in (('a_smooth', None), ('zeros', torch.zeros_like(a_s))):
+                    it = torch.zeros(B, dtype=torch.int32, device='cuda')
+                    got = fn(M, a_s, efc, warmstart=warm, iterations_out=it)
+                    again = fn(M, a_s, efc, warmstart=warm)
+                    torch.cuda.synchronize()
+                    it_ref = torch.zeros_like(it)
+                    ref = solver.solve(M, a_s, efc, warm, iterations_out=it_ref, _tol=tol)
+                    errs = [rel_err(g, r) if r.numel() else 0.0 for g, r in zip(got, ref)]
+                    same = all(torch.equal(x, y) for x, y in zip(got, again))
+                    n_diff = int((it != it_ref).sum())
+                    zeros = bool((got[1][~efc.active] == 0).all()
+                                 and (got[2][~efc.con_active] == 0).all())
+                    log(5, f'B={B} {case} {form} from {start}: rel err vs plain qacc '
+                           f'{errs[0]:.3e}, f_simple {errs[1]:.3e}, f_cone {errs[2]:.3e}, qfrc '
+                           f'{errs[3]:.3e}; max|qacc| {ref[0].abs().max().item():.2f}; mean '
+                           f'iterations kernel {it.float().mean().item():.3f}, plain '
+                           f'{it_ref.float().mean().item():.3f}, envs that differ {n_diff}; '
+                           f'zero forces on inactive rows {zeros}; repeat bitwise equal {same}')
+                    # soft states converge in f32; the bar is 1e-4 of 1 + max|ref|
+                    where = f'B={B} {case} {form} from {start}'
+                    mean_diff = abs(it.float().mean() - it_ref.float().mean()).item()
+                    if not max(errs) < NEWTON_BAR:
+                        failures.append(f'Newton kernel disagrees: {where}')
+                    if n_diff > ITERATION_ENVS_BAR * B or mean_diff > ITERATION_MEAN_BAR:
+                        failures.append(f'Newton iteration counts differ in {n_diff} envs, '
+                                        f'mean by {mean_diff}: {where}')
+                    if not zeros:
+                        failures.append(f'Newton kernel forces on inactive rows: {where}')
+                    if not same:
+                        failures.append(f'Newton kernel not deterministic: {where}')
+                    if (B, case, form, start) == (BATCH, 'soft', 'solve_batched', 'a_smooth'):
+                        newton_abs_err = (got[0] - ref[0]).abs().max().item()
+    return newton_abs_err, failures
+
+
+def card():
+    """Phase 1: require the card, print its name and power limit, TF32 off."""
     if not torch.cuda.is_available():
         raise RuntimeError('chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -145,16 +285,42 @@ def main():
            f'matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} '
            f'cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}')
 
-    # ---- 2. build, one nvcc per source, in parallel -----------------------------------
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--newton-agreement', action='store_true',
+                        help='run phases 1 and 5 alone and print their failures')
+    args = parser.parse_args()
+    # ---- 1. the card ---------------------------------------------------------------
+    card()
+    dm = load_model('spot', 'flat', device='cuda', dtype=torch.float32)
+    m = dm.m
+    if args.newton_agreement:
+        _, failures = newton_agreement(dm)
+        for failure in failures:
+            log(5, f'FAILED {failure}')
+        sys.exit(1 if failures else 0)
+
+    # ---- 2. build, one nvcc per source and size, all in parallel -----------------------
     t_build = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda mod: mod.build(), (spd, nf)))
-    log(2, f'both kernels built in {time.perf_counter() - t_build:.2f} s')
-    for path, secs, out in builds:
-        log(2, f'built {path.name} in {secs:.2f} s')
+    builds = [(spd, n) for n in (m.nv, 7, 32)] + [(nf, m.nv)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: b[0].build(b[1]), builds))
+    log(2, f'{len(builds)} kernel builds in {time.perf_counter() - t_build:.2f} s')
+    for (mod, n), (path, secs, out) in zip(builds, built):
+        log(2, f'built {path.name} ({mod.__name__.rsplit(".", 1)[1]}, n={n}) in {secs:.2f} s')
         for line in out.splitlines():
             if 'ptxas' in line or 'registers' in line or 'spill' in line:
                 log(2, line.strip())
+    lay = constraint_layout(m)
+    sizes = (m.nv, lay.n_fl + lay.n_lim, min(len(lay.cone_slots), engine.MAX_CONE_CONTACTS))
+    spd_blocks, per_block = spd.occupancy(m.nv)
+    log(2, f'spd_solve at n={m.nv}: {spd_blocks} blocks of {per_block} systems per SM = '
+           f'{spd_blocks * per_block} resident systems per SM')
+    nf_blocks, per_block, smem = nf.occupancy(*sizes)
+    log(2, f'newton_fused at (nv, ns, C)={sizes}: {nf_blocks} blocks of {per_block} envs per '
+           f'SM = {nf_blocks * per_block} resident envs per SM, {smem} B of shared memory '
+           f'per block ({smem / per_block / 1024:.2f} KB per env)')
 
     # ---- 3. kernel against plain, on the card ----------------------------------------
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -179,49 +345,24 @@ def main():
     # ---- 4. timings at the main path's shape -----------------------------------------
     B, n = BATCH, 18
     A, b = random_spd(gen, B, n)
-    kernel_ms = median_ms(lambda: spd.spd_solve_batched(A, b))
+    x = torch.empty_like(b)
+    args = (A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
+    spd_c = spd._library(n).gqt_spd_solve_f32
+    kernel_ms = median_ms(lambda: spd_c(*args))
+    wrapper_ms = median_ms(lambda: spd.spd_solve_batched(A, b))
     plain_ms = median_ms(lambda: spd.unrolled_chol_solve_torch(A, b), launches=10)
     library_ms = median_ms(lambda: torch.linalg.solve(A, b[..., None]), launches=20)
     n_bytes = B * (n * n + 2 * n) * 4
     n_flop = B * (n ** 3 / 3 + 2 * n * n)
     bound_ms, bound_by = bound(n_bytes, n_flop)
-    log(4, f'(4096, 18): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-           f'torch.linalg.solve {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: '
-           f'{n_bytes / 1e6:.2f} MB, {n_flop / 1e6:.2f} MFLOP)')
+    log(4, f'(4096, 18): kernel {kernel_ms:.4f} ms (through the wrapper {wrapper_ms:.4f} ms), '
+           f'plain {plain_ms:.4f} ms, torch.linalg.solve {library_ms:.4f} ms, bound '
+           f'{bound_ms:.5f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB, {n_flop / 1e6:.2f} MFLOP)')
 
     # ---- 5. the fused Newton kernel against its plain version -------------------------
-    dm = load_model('spot', 'flat', device='cuda', dtype=torch.float32)
-    m = dm.m
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
-    newton_abs_err = None
-    forms = (('solve_batched', nf.solve_batched, None),
-             ('solve_batched_bt', nf.solve_batched_bt, 0.0))
-    for B in (BATCH, BATCH + 1):
-        M, a_s, efc = soft_state(dm, gen, B)
-        log(5, f'B={B}: ns={efc.J.shape[1]}, C={efc.con_J.shape[1]}, active cone blocks '
-               f'per env {efc.con_active.sum(1).float().mean().item():.2f}')
-        for form, fn, tol in forms:
-            for start, warm in (('a_smooth', None), ('zeros', torch.zeros_like(a_s))):
-                it = torch.zeros(B, dtype=torch.int32, device='cuda')
-                got = fn(M, a_s, efc, warmstart=warm, iterations_out=it)
-                again = fn(M, a_s, efc, warmstart=warm)
-                torch.cuda.synchronize()
-                it_ref = torch.zeros_like(it)
-                ref = solver.solve(M, a_s, efc, warm, iterations_out=it_ref, _tol=tol)
-                errs = [rel_err(g, r) for g, r in zip(got, ref)]
-                same = all(torch.equal(x, y) for x, y in zip(got, again))
-                log(5, f'B={B} {form} from {start}: rel err vs plain qacc {errs[0]:.3e}, '
-                       f'f_simple {errs[1]:.3e}, f_cone {errs[2]:.3e}, qfrc {errs[3]:.3e}; '
-                       f'max|qacc| {ref[0].abs().max().item():.2f}; mean iterations kernel '
-                       f'{it.float().mean().item():.3f}, plain {it_ref.float().mean().item():.3f}; '
-                       f'repeat bitwise equal {same}')
-                # soft states converge in f32; the bar is 1e-4 of 1 + max|ref|
-                if not max(errs) < NEWTON_BAR:
-                    raise AssertionError(f'Newton kernel disagrees: B={B} {form} from {start}')
-                if not same:
-                    raise AssertionError(f'Newton kernel not deterministic: B={B} {form}')
-                if (B, form, start) == (BATCH, 'solve_batched', 'a_smooth'):
-                    newton_abs_err = (got[0] - ref[0]).abs().max().item()
+    newton_abs_err, failures = newton_agreement(dm)
+    if failures:
+        raise AssertionError('; '.join(failures))
 
     # ---- 6. the main path --------------------------------------------------------------
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -291,28 +432,45 @@ def main():
     ns, C = efc.J.shape[1], efc.con_J.shape[1]
     it = torch.zeros(B, dtype=torch.int32, device='cuda')
     outs = nf.solve_batched(M, a_s, efc, warmstart=w, iterations_out=it)
-    newton_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w))
-    newton_bt_ms = median_ms(lambda: nf.solve_batched_bt(M, a_s, efc, warmstart=w))
+    newton_c = nf._library(nv).gqt_newton_fused_f32
+    outputs = tuple(torch.empty_like(x) for x in outs)
+    tol = solver._TOL[torch.float32]
+    args = nf.kernel_args(M, a_s, efc, w, outputs, None, 10, LS_ITERATIONS, tol)
+    args_bt = nf.kernel_args(M, a_s, efc, w, outputs, None, 10, LS_ITERATIONS, 0.0)
+    newton_ms = median_ms(lambda: newton_c(*args))
+    newton_bt_ms = median_ms(lambda: newton_c(*args_bt))
+    newton_wrapper_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w))
     eager_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w), launches=3, repeats=3)
     inputs = [M, a_s, w] + [getattr(efc, k) for k in nf.EFC_FLOAT_FIELDS + nf.EFC_MASK_FIELDS]
     n_bytes = sum(x.numel() * x.element_size() for x in inputs + list(outs))
     env_iterations = int(it.sum())
     n_flop = newton_flop(nv, ns, C, env_iterations, B)
-    newton_bound_ms, newton_bound_by = bound(n_bytes, n_flop)
+    dense_bound_ms, dense_bound_by = bound(n_bytes, n_flop)
+    act_flop, act_bytes = newton_needed_work(M, efc, it)
+    newton_bound_ms, newton_bound_by = bound(act_bytes, act_flop)
     log(8, f'(B={B}, nv={nv}, ns={ns}, C={C}), the last main-path step: fused kernel '
-           f'{newton_ms:.4f} ms, eager solver.solve {eager_ms:.4f} ms, bound '
-           f'{newton_bound_ms:.5f} ms ({newton_bound_by}: {n_bytes / 1e6:.2f} MB, '
-           f'{n_flop / 1e9:.3f} GFLOP over {env_iterations} env-iterations, mean '
-           f'{env_iterations / B:.3f}, max {int(it.max())}); no single PyTorch call '
+           f'{newton_ms:.4f} ms (through the wrapper {newton_wrapper_ms:.4f} ms), eager '
+           f'solver.solve {eager_ms:.4f} ms; {env_iterations} '
+           f'env-iterations, mean {env_iterations / B:.3f}, max {int(it.max())}; active simple '
+           f'rows per env {efc.active.sum(1).float().mean().item():.3f}, active cone blocks '
+           f'{efc.con_active.sum(1).float().mean().item():.3f}; no single PyTorch call '
            f'computes a Newton contact solve')
+    log(8, f'bound of what these inputs need (reported): {newton_bound_ms:.5f} ms '
+           f'({newton_bound_by}: {act_bytes / 1e6:.2f} MB, {act_flop / 1e9:.3f} GFLOP) = '
+           f'{newton_ms / newton_bound_ms:.1f}x; dense bound: {dense_bound_ms:.5f} ms '
+           f'({dense_bound_by}: {n_bytes / 1e6:.2f} MB, {n_flop / 1e9:.3f} GFLOP) = '
+           f'{newton_ms / dense_bound_ms:.1f}x')
     # the fixed-count form on the same inputs: every env runs 10 iterations
     eager_bt_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w, _tol=0.0),
                             launches=3, repeats=3)
     bt_flop = newton_flop(nv, ns, C, 10 * B, B)
     bt_bound_ms, bt_bound_by = bound(n_bytes, bt_flop)
+    bt_act_flop, _ = newton_needed_work(M, efc, torch.full_like(it, 10))
+    bt_act_ms, bt_act_by = bound(act_bytes, bt_act_flop)
     log(8, f'fixed 10 iterations: fused kernel {newton_bt_ms:.4f} ms, eager '
-           f'solver.solve {eager_bt_ms:.4f} ms, bound {bt_bound_ms:.5f} ms ({bt_bound_by}: '
-           f'{bt_flop / 1e9:.3f} GFLOP)')
+           f'solver.solve {eager_bt_ms:.4f} ms, bound of what these inputs need {bt_act_ms:.5f} ms '
+           f'({bt_act_by}: {bt_act_flop / 1e9:.3f} GFLOP) = {newton_bt_ms / bt_act_ms:.1f}x, '
+           f'dense bound {bt_bound_ms:.5f} ms ({bt_bound_by}: {bt_flop / 1e9:.3f} GFLOP)')
 
     # ---- 9. device profile of a few steps -----------------------------------------------
     from torch.profiler import ProfilerActivity, profile

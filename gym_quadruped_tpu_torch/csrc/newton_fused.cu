@@ -11,60 +11,152 @@
 //
 // Each iteration, per env (the port's gym_quadruped_tpu_torch/physics/
 // solver.py `solve`, whose force laws and zone tests this mirrors exactly):
-//   rows    us = J a - aref (ns simple rows), uc = cJ a - caref (C blocks of 6)
+//   rows    us = J a - aref (simple rows), uc = cJ a - caref (blocks of 6)
 //   forces  Huber / one-sided simple rows, the elliptic cone force per block
 //   g       M (a - a_smooth) - J' fs - cJ' fc
 //   H       M + J' diag(cw) J + sum_c cJ_c' Hc_c cJ_c + 1e-10 tr(M)/nv I,
 //           Hc the closed-form cone curvature
-//   p       -H^-1 g: Cholesky with the pivot clamped to sqrt(max(s, 1e-30))
-//           and a reciprocal diagonal, as csrc/spd_solve.cu
+//   p       -H^-1 g: the warp Cholesky of csrc/chol_warp.cuh
 //   t       phi'(t) on the grid geomspace(1e-3, 256, 15), bracket, then
 //           ls_iterations bisections; a += t p
-// and at the end the forces and qfrc = J' fs + cJ' fc at the final a.
+// and at the end the forces and qfrc = J' fs + cJ' fc at the final a. With
+// no rows at all (ns = C = 0) the cost is 1/2 r'M r and its minimiser is
+// a_smooth: the kernel writes it with 0 iterations, as `solve` does.
 //
 // What bounds it on an H100, at (B 4096, nv 18, ns 24, C 10): it must read
 // 8,730 B of inputs and write 480 B of outputs per env, 37.7 MB in all
-// (11.3 us at 3.35 TB/s), and compute about 86 kFLOP per env and iteration
-// (H's cone quadratic form and J' W J 33 k, Hc cJ 13 k, the 21 evaluations of
-// phi' 23 k, the Cholesky and solves 3 k, rows, g and the rest 14 k): 3.5
-// GFLOP at 10 iterations (53 us at 67 TFLOP/s f32). It is bound by
-// operations, and this first version by the latency of its many small
-// dependent steps: one env's work is too small to fill a block.
+// (11.3 us at 3.35 TB/s). Counted densely it computes about 86 kFLOP per env
+// and iteration, 3.5 GFLOP at 10 iterations (53 us at 67 TFLOP/s f32). But a
+// row whose `active` flag is off has D = 0, and then its force, its
+// curvature and its line-search term are exact zeros (simple_force gives
+// +-0; cone_force gives 0 in all three zones when Dn and D are 0;
+// cone_hessian too). On spot/flat the 12 joint-limit rows are inactive except
+// near a joint's range and only the feet touching the floor of the 10 cone
+// slots are active; and every simple row has one nonzero in J, and M has
+// zeros between the legs. Over the active rows and these nonzeros the work
+// these inputs need is about a quarter of the dense count, and the bytes
+// bound it (chip_smoke.py phase 8 prints both bounds). The kernel is bound
+// by the latency of its small dependent steps: one env's work is too small
+// for many threads.
 //
-// Design (simple first): one block of 128 threads runs one env's whole
-// solve, so a ragged batch needs no masking and no env waits for another.
-// The block stages the env's inputs into shared memory once (17.4 KB at the
-// sizes above, 78 KB at nv 32, ns 64, C 32) and keeps every intermediate
-// there. Rows, forces, g, Hc cJ and the lower triangle of H are spread over
-// the threads; warp 0 factors H column by column (lane i owns row i) and
-// solves with shuffles; the 15 grid points of phi' go to the 4 warps, then
-// warp 0 brackets, bisects and takes the stopping test for the block. Each
+// Design: one warp runs one env's whole solve, WARPS envs to a block, and
+// warps never wait for each other (no block barrier), so a converged env is a
+// warp that leaves its loop and a ragged last block's spare warps return at
+// once. Two envs to a block: a block keeps its shared memory until its
+// slowest env is done, so small blocks waste little of it. At staging the
+// warp compacts the active rows with a ballot and a prefix count: only the na
+// active simple rows and the nc active cone blocks are staged, in their
+// original order, and every loop walks only those. Dropping a row drops exact
+// zeros from each sum, and adding a zero does not change an f32 sum, so
+// compaction changes no result; inactive rows get zero forces. Everything the
+// loop reads lives in the warp's part of shared memory (13.5 KB at the sizes
+// above; 8 blocks = 16 envs per SM, where the launch bounds' 128 registers a
+// thread allow 16 warps too). Each phase spreads over the lanes: rows, forces
+// and the cone curvature over the active rows and blocks; g and M p over the
+// dofs; H's lower triangle over its pairs (with an exact shortcut for simple
+// rows of one nonzero, and each active block's Hc_c cJ_c formed in a 6 x nv
+// scratch and folded into H straight away); the Cholesky column by column
+// with lane i owning row i in registers; the 15 grid points of phi' on lane
+// pairs, each lane summing half the rows. The 6 bisections stay serial, each
+// phi' summed over the active rows across the lanes: on spot/flat about 16-23
+// rows and blocks are active, so one warp-wide evaluation costs one cone
+// block and a butterfly, where evaluating the 63 nodes of the bisection tree
+// speculatively would cost every lane two serial sums over all the rows. Each
 // sum runs in a fixed order and the warp sums are xor butterflies, which give
-// every lane the same bits: repeated runs are bitwise identical. The block
-// leaves its loop when its env converges: there is no host sync. The kernel
-// launches on the caller's stream and allocates nothing.
+// every lane the same bits: repeated runs are bitwise identical. The kernel
+// is compiled for one nv = GQT_NV (ops/newton_fused.py builds one library per
+// nv), so every loop over the dofs has a known trip count and each lane's
+// pairs of H are unrolled. There is no host sync. The kernel launches on the
+// caller's stream and allocates nothing.
 
 #include <cuda_runtime.h>
 
+#include "chol_warp.cuh"
+
+#ifndef GQT_NV
+#error "compile with -DGQT_NV=<nv>, the dofs (1 to 32)"
+#endif
+static_assert(GQT_NV >= 1 && GQT_NV <= chol_warp::MAX_N, "GQT_NV must be in 1..32");
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = 2;          // envs per block
+constexpr int THREADS = 32 * WARPS;
 constexpr int GRID = 15;          // step-length grid points
 constexpr float T_MAX = 256.0f;   // the grid's last point
 constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory floats of one env (the layout of newton_kernel below).
-__host__ __device__ int smem_floats(int nv, int ns, int C) {
-  const int rows = ns + 6 * C;
-  return 2 * nv * nv + ns * nv + 2 * 6 * C * nv + 36 * C + 5 * rows + 3 * ns +
-         5 * C + 6 * C + 7 * nv + 2 * 16;
+// One env's shared memory, as float offsets (M, H, J, cJ and Tc have the
+// odd row stride ld = nv | 1; the row arrays hold the active simple rows,
+// then the active cone blocks' rows).
+struct Layout {
+  int ld, M, H, J, cJ, Hc, Tc, u, du, f, aref, D, fl, cw, col, mu, dm, as, a, r, p, Mp, grid, total;
+};
+
+__host__ __device__ inline int take(int& o, int n) {
+  const int at = o;
+  o += n;
+  return at;
 }
+
+__host__ __device__ Layout layout(int nv, int ns, int C) {
+  Layout s;
+  const int ld = nv | 1, rows = ns + 6 * C;
+  int o = 0;
+  s.ld = ld;
+  s.M = take(o, nv * ld);
+  s.H = take(o, nv * ld);
+  s.J = take(o, ns * ld);
+  s.cJ = take(o, 6 * C * ld);
+  s.Hc = take(o, 36 * C);
+  s.Tc = take(o, 6 * ld);
+  s.u = take(o, rows);
+  s.du = take(o, rows);
+  s.f = take(o, rows);
+  s.aref = take(o, rows);
+  s.D = take(o, rows);
+  s.fl = take(o, ns);
+  s.cw = take(o, ns);
+  s.col = take(o, ns);
+  s.mu = take(o, 5 * C);
+  s.dm = take(o, 6 * C);
+  s.as = take(o, nv);
+  s.a = take(o, nv);
+  s.r = take(o, nv);
+  s.p = take(o, nv);
+  s.Mp = take(o, nv);
+  s.grid = take(o, 16);
+  s.total = o;
+  return s;
+}
+
+size_t smem_bytes(int nv, int ns, int C) { return sizeof(float) * WARPS * layout(nv, ns, C).total; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// Bit i of the (up to 64-bit) mask m0, m1 and the count of set bits below it.
+__device__ __forceinline__ bool has(unsigned m0, unsigned m1, int i) {
+  return ((i < 32 ? m0 >> i : m1 >> (i - 32)) & 1u) != 0;
+}
+__device__ __forceinline__ int rank(unsigned m0, unsigned m1, int i) {
+  return i < 32 ? __popc(m0 & ((1u << i) - 1u))
+                : __popc(m0) + __popc(m1 & ((1u << (i - 32)) - 1u));
 }
 
 // Row-separable force: one-sided quadratic (uni = 1) or Huber clamp.
@@ -80,6 +172,8 @@ __device__ __forceinline__ float simple_weight(float u, float D, float fl, float
   const float c_hub = fabsf(D * u) < fl ? D : 0.0f;
   return uni * c_uni + (1.0f - uni) * c_hub;
 }
+
+__device__ __forceinline__ float unilateral(float fl) { return fl <= 0.0f ? 1.0f : 0.0f; }
 
 // The scalars both cone laws share: mu0 T and the masked friction rows uf.
 struct Cone {
@@ -171,20 +265,26 @@ __device__ __forceinline__ void cone_hessian(const float* u, const float* D, con
   }
 }
 
-// Everything one env keeps in shared memory.
+// One env in its warp's part of shared memory: na active simple rows and nc
+// active cone blocks, compacted; the cone rows follow the simple rows in the
+// row arrays (row na + 6 m + d is dimension d of block m).
 struct Env {
-  int nv, ns, C;
-  float *M, *H, *J, *cJ, *T, *Hc;
-  float *u, *du, *f, *aref, *D;   // ns simple rows, then 6 C cone rows
-  float *fl, *uni, *cw, *mu, *dm;
-  float *as, *a, *r, *g, *p, *Mp, *Mr, *grid, *vals;
+  int nv, ld, na, nc;
+  bool unit;   // every active simple row has at most one nonzero, at col
+  float *M, *H, *J, *cJ, *Hc, *Tc;
+  float *u, *du, *f, *aref, *D, *fl, *cw, *mu, *dm;
+  float *as, *a, *r, *p, *Mp, *grid;
+  int* col;
+
+  __device__ __forceinline__ const float* row(int i) const {
+    return i < na ? J + i * ld : cJ + (i - na) * ld;
+  }
 };
 
-// u = J a - aref over the simple rows and the cone rows.
-__device__ void compute_rows(const Env& e) {
-  const int rows = e.ns + 6 * e.C;
-  for (int i = threadIdx.x; i < rows; i += THREADS) {
-    const float* row = i < e.ns ? e.J + i * e.nv : e.cJ + (i - e.ns) * e.nv;
+// u = J a - aref over the active rows.
+__device__ __forceinline__ void compute_rows(const Env& e, int lane) {
+  for (int i = lane; i < e.na + 6 * e.nc; i += 32) {
+    const float* row = e.row(i);
     float s = 0.0f;
     for (int k = 0; k < e.nv; ++k) s += row[k] * e.a[k];
     e.u[i] = s - e.aref[i];
@@ -193,82 +293,160 @@ __device__ void compute_rows(const Env& e) {
 
 // Forces at the current rows; with `curvature`, also the simple-row weights
 // and the cone blocks' curvature.
-__device__ void compute_forces(const Env& e, bool curvature) {
-  for (int i = threadIdx.x; i < e.ns + e.C; i += THREADS) {
-    if (i < e.ns) {
-      e.f[i] = simple_force(e.u[i], e.D[i], e.fl[i], e.uni[i]);
-      if (curvature) e.cw[i] = simple_weight(e.u[i], e.D[i], e.fl[i], e.uni[i]);
+__device__ __forceinline__ void compute_forces(const Env& e, bool curvature, int lane) {
+  for (int i = lane; i < e.na + e.nc; i += 32) {
+    if (i < e.na) {
+      const float uni = unilateral(e.fl[i]);
+      e.f[i] = simple_force(e.u[i], e.D[i], e.fl[i], uni);
+      if (curvature) e.cw[i] = simple_weight(e.u[i], e.D[i], e.fl[i], uni);
     } else {
-      const int c = i - e.ns, o = e.ns + 6 * c;
-      cone_force(e.u + o, e.D + o, e.mu + 5 * c, e.dm + 6 * c, e.f + o);
-      if (curvature) cone_hessian(e.u + o, e.D + o, e.mu + 5 * c, e.dm + 6 * c, e.Hc + 36 * c);
+      const int m = i - e.na, o = e.na + 6 * m;
+      cone_force(e.u + o, e.D + o, e.mu + 5 * m, e.dm + 6 * m, e.f + o);
+      if (curvature) cone_hessian(e.u + o, e.D + o, e.mu + 5 * m, e.dm + 6 * m, e.Hc + 36 * m);
     }
   }
 }
 
-// J' fs + cJ' fc at dof k.
-__device__ __forceinline__ void constraint_force(const Env& e, int k, float* jf, float* cf) {
+// J' fs + cJ' fc at dof k, over the active rows.
+__device__ __forceinline__ float constraint_force(const Env& e, int k) {
   float s1 = 0.0f, s2 = 0.0f;
-  for (int i = 0; i < e.ns; ++i) s1 += e.J[i * e.nv + k] * e.f[i];
-  for (int r = 0; r < 6 * e.C; ++r) s2 += e.cJ[r * e.nv + k] * e.f[e.ns + r];
-  *jf = s1;
-  *cf = s2;
+  for (int q = 0; q < e.na; ++q) s1 += e.J[q * e.ld + k] * e.f[q];
+  for (int q = 0; q < 6 * e.nc; ++q) s2 += e.cJ[q * e.ld + k] * e.f[e.na + q];
+  return s1 + s2;
 }
 
-// phi'(t) of the line search, summed by one warp (every lane gets the value).
-__device__ float dphi(const Env& e, float t, float pMr, float pMp, int lane) {
+// One simple row's and one cone block's term f(u + t du) . du of phi'(t).
+__device__ __forceinline__ float simple_term(const Env& e, int k, float t) {
+  const float ut = e.u[k] + t * e.du[k];
+  return simple_force(ut, e.D[k], e.fl[k], unilateral(e.fl[k])) * e.du[k];
+}
+
+__device__ __forceinline__ float cone_term(const Env& e, int m, float t) {
+  const int o = e.na + 6 * m;
+  float ut[6], ft[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) ut[d] = e.u[o + d] + t * e.du[o + d];
+  cone_force(ut, e.D + o, e.mu + 5 * m, e.dm + 6 * m, ft);
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 6; ++d) s += ft[d] * e.du[o + d];
+  return s;
+}
+
+// phi'(t) summed by two lanes, lane and lane ^ 16: each half of the warp
+// sums its half of the simple rows and of the cone blocks in order, and one
+// shuffle adds the halves (both lanes get the value).
+__device__ __forceinline__ float dphi_pair(const Env& e, float t, float pMr, float pMp,
+                                           int lane) {
+  const int half = lane >> 4, sa = (e.na + 1) / 2, sc = (e.nc + 1) / 2;
   float s1 = 0.0f, s2 = 0.0f;
-  for (int i = lane; i < e.ns; i += 32) {
-    const float ut = e.u[i] + t * e.du[i];
-    s1 += simple_force(ut, e.D[i], e.fl[i], e.uni[i]) * e.du[i];
-  }
-  for (int c = lane; c < e.C; c += 32) {
-    const int o = e.ns + 6 * c;
-    float ut[6], ft[6];
-#pragma unroll
-    for (int d = 0; d < 6; ++d) ut[d] = e.u[o + d] + t * e.du[o + d];
-    cone_force(ut, e.D + o, e.mu + 5 * c, e.dm + 6 * c, ft);
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < 6; ++d) s += ft[d] * e.du[o + d];
-    s2 += s;
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
+  for (int k = half ? sa : 0, end = half ? e.na : sa; k < end; ++k) s1 += simple_term(e, k, t);
+  for (int m = half ? sc : 0, end = half ? e.nc : sc; m < end; ++m) s2 += cone_term(e, m, t);
+  s1 += __shfl_xor_sync(FULL, s1, 16);
+  s2 += __shfl_xor_sync(FULL, s2, 16);
   return pMr + t * pMp - s1 - s2;
 }
 
-// Warp 0: p = -H^-1 g. Lane i owns row i; L overwrites H's lower triangle.
-__device__ void chol_solve(const Env& e, int lane) {
-  const int n = e.nv;
-  float* L = e.H;
-  float inv = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    const float r = 1.0f / sqrtf(fmaxf(L[j * n + j], 1e-30f));
-    if (lane == j) inv = r;
-    if (lane > j && lane < n) L[lane * n + j] *= r;
-    __syncwarp();
-    if (lane > j && lane < n) {
-      const float l = L[lane * n + j];
-      for (int k = j + 1; k <= lane; ++k) L[lane * n + k] -= l * L[k * n + j];
-    }
-    __syncwarp();
+// phi'(t) summed across the warp (every lane gets the value).
+__device__ __forceinline__ float dphi_warp(const Env& e, float t, float pMr, float pMp,
+                                           int lane) {
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int i = lane; i < e.na + e.nc; i += 32) {
+    if (i < e.na) s1 += simple_term(e, i, t);
+    else s2 += cone_term(e, i - e.na, t);
   }
-  float v = lane < n ? e.g[lane] : 0.0f;
-  for (int i = 0; i < n; ++i) {                      // L y = g
-    const float yi = __shfl_sync(FULL, v, i) * __shfl_sync(FULL, inv, i);
-    if (lane == i) v = yi;
-    else if (lane > i && lane < n) v -= L[lane * n + i] * yi;
-  }
-  for (int i = n - 1; i >= 0; --i) {                 // L' x = y
-    const float xi = __shfl_sync(FULL, v, i) * __shfl_sync(FULL, inv, i);
-    if (lane == i) v = xi;
-    else if (lane < i) v -= L[i * n + lane] * xi;
-  }
-  if (lane < n) e.p[lane] = -v;
+  return pMr + t * pMp - warp_sum(s1 + s2);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The lower triangle of H = M + J' diag(cw) J + sum_c cJ_c' (Hc_c cJ_c) +
+// reg I. Its pairs (0,0), (1,0), (1,1), (2,0), ... go round the lanes. When
+// every simple row has one nonzero J_qc (a dof's friction loss, a hinge's
+// limit), J' diag(cw) J adds only to H_cc, and every other term of the
+// dense sum is an exact zero: lane c sums its diagonal's terms in row order
+// and the other pairs take M as it is. Then each active block's Hc_c cJ_c
+// is formed in the 6 x nv scratch Tc, lane k holding column k of cJ_c, and
+// added to every pair before the next block's: a lane's P pairs are
+// unrolled and their sums kept in registers across the blocks.
+__device__ __forceinline__ void next_pair(int& i, int& j) {
+  while (j > i) {
+    j -= i + 1;
+    ++i;
+  }
+}
+
+__device__ __forceinline__ void compute_hessian(const Env& e, float reg, int lane) {
+  const int ld = e.ld, nv = e.nv;
+  if (e.unit) {
+    for (int i = 0, j = lane; next_pair(i, j), i < nv; j += 32) {
+      if (i != j) e.H[i * ld + j] = e.M[i * ld + j];
+    }
+    if (lane < nv) {
+      float s1 = 0.0f;
+      for (int q = 0; q < e.na; ++q) {
+        if (e.col[q] == lane) {
+          const float x = e.J[q * ld + lane];
+          s1 += x * (e.cw[q] * x);
+        }
+      }
+      e.H[lane * ld + lane] = e.M[lane * ld + lane] + s1;
+    }
+  } else {
+    for (int i = 0, j = lane; next_pair(i, j), i < nv; j += 32) {
+      float s1 = 0.0f;
+      for (int q = 0; q < e.na; ++q) s1 += e.J[q * ld + i] * (e.cw[q] * e.J[q * ld + j]);
+      e.H[i * ld + j] = e.M[i * ld + j] + s1;
+    }
+  }
+  constexpr int P = (GQT_NV * (GQT_NV + 1) / 2 + 31) / 32;
+  int pair[P];   // i << 8 | j, or -1 past the triangle's end
+  float acc[P];
+  __syncwarp();
+  {
+    int i = 0, j = lane;
+#pragma unroll
+    for (int p = 0; p < P; ++p, j += 32) {
+      next_pair(i, j);
+      pair[p] = i < nv ? i << 8 | j : -1;
+      acc[p] = i < nv ? e.H[i * ld + j] : 0.0f;
+    }
+  }
+  for (int m = 0; m < e.nc; ++m) {
+    const float* hc = e.Hc + 36 * m;
+    const float* cj = e.cJ + 6 * m * ld;
+    __syncwarp();   // the previous block's Tc has been read
+    if (lane < nv) {
+      float cjk[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) cjk[q] = cj[q * ld + lane];
+#pragma unroll
+      for (int d = 0; d < 6; ++d) {
+        float s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += hc[6 * d + q] * cjk[q];
+        e.Tc[d * ld + lane] = s;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (pair[p] < 0) continue;
+      const int i = pair[p] >> 8, j = pair[p] & 255;
+      float s = 0.0f;
+#pragma unroll
+      for (int d = 0; d < 6; ++d) s += cj[d * ld + i] * e.Tc[d * ld + j];
+      acc[p] += s;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (pair[p] < 0) continue;
+    const int i = pair[p] >> 8, j = pair[p] & 255;
+    e.H[i * ld + j] = i == j ? acc[p] + reg : acc[p];
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(THREADS, 16 / WARPS)
 newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
               const float* __restrict__ gA0, const float* __restrict__ gJ,
               const float* __restrict__ gAref, const float* __restrict__ gR,
@@ -278,190 +456,225 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
               const float* __restrict__ gMu, const float* __restrict__ gDm,
               const float* __restrict__ gGrid, float* __restrict__ qacc,
               float* __restrict__ fs_out, float* __restrict__ fc_out,
-              float* __restrict__ qfrc_out, int* __restrict__ iters_out, int nv, int ns,
+              float* __restrict__ qfrc_out, int* __restrict__ iters_out, int B, int ns,
               int C, int iterations, int ls_iterations, float tol) {
   extern __shared__ float smem[];
-  __shared__ float s_t;           // the accepted step length
-  __shared__ bool s_converged;    // the env's stopping test, one value for the block
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nn = nv * nv, R6 = 6 * C, rows = ns + R6, ncj = R6 * nv;
+  constexpr int nv = GQT_NV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long env = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (env >= B) return;
+  if (ns == 0 && C == 0) {
+    if (lane < nv) {
+      qacc[env * nv + lane] = gAs[env * nv + lane];
+      qfrc_out[env * nv + lane] = 0.0f;
+    }
+    if (lane == 0 && iters_out != nullptr) iters_out[env] = 0;
+    return;
+  }
+
+  const Layout s = layout(nv, ns, C);
+  float* base = smem + warp * s.total;
+  const int ld = s.ld, nn = nv * nv, R6 = 6 * C;
+
+  // ---- compact the active rows: bit i of (sm0, sm1) is simple row i, bit c of
+  // cm is cone block c; a row's rank among the active ones is its slot -----------
+  const unsigned char* act = gAct + env * ns;
+  const unsigned sm0 = __ballot_sync(FULL, lane < ns && act[lane]);
+  const unsigned sm1 = __ballot_sync(FULL, lane + 32 < ns && act[lane + 32]);
+  const unsigned cm = __ballot_sync(FULL, lane < C && gCact[env * C + lane]);
+
   Env e;
   e.nv = nv;
-  e.ns = ns;
-  e.C = C;
-  e.M = smem;
-  e.H = e.M + nn;
-  e.J = e.H + nn;
-  e.cJ = e.J + ns * nv;
-  e.T = e.cJ + ncj;
-  e.Hc = e.T + ncj;
-  e.u = e.Hc + 36 * C;
-  e.du = e.u + rows;
-  e.f = e.du + rows;
-  e.aref = e.f + rows;
-  e.D = e.aref + rows;
-  e.fl = e.D + rows;
-  e.uni = e.fl + ns;
-  e.cw = e.uni + ns;
-  e.mu = e.cw + ns;
-  e.dm = e.mu + 5 * C;
-  e.as = e.dm + R6;
-  e.a = e.as + nv;
-  e.r = e.a + nv;
-  e.g = e.r + nv;
-  e.p = e.g + nv;
-  e.Mp = e.p + nv;
-  e.Mr = e.Mp + nv;
-  e.grid = e.Mr + nv;
-  e.vals = e.grid + 16;
+  e.ld = ld;
+  e.na = __popc(sm0) + __popc(sm1);
+  e.nc = __popc(cm);
+  e.M = base + s.M;
+  e.H = base + s.H;
+  e.J = base + s.J;
+  e.cJ = base + s.cJ;
+  e.Hc = base + s.Hc;
+  e.Tc = base + s.Tc;
+  e.u = base + s.u;
+  e.du = base + s.du;
+  e.f = base + s.f;
+  e.aref = base + s.aref;
+  e.D = base + s.D;
+  e.fl = base + s.fl;
+  e.cw = base + s.cw;
+  e.col = reinterpret_cast<int*>(base + s.col);
+  e.mu = base + s.mu;
+  e.dm = base + s.dm;
+  e.as = base + s.as;
+  e.a = base + s.a;
+  e.r = base + s.r;
+  e.p = base + s.p;
+  e.Mp = base + s.Mp;
+  e.grid = base + s.grid;
 
-  // ---- stage the env's inputs once ---------------------------------------------
-  const long long env = blockIdx.x;
-  for (int i = tid; i < nn; i += THREADS) e.M[i] = gM[env * nn + i];
-  for (int i = tid; i < nv; i += THREADS) {
-    e.as[i] = gAs[env * nv + i];
-    e.a[i] = gA0[env * nv + i];
+  // ---- stage the env's inputs once: M, the active rows, the vectors --------------
+  for (int i = lane; i < nn; i += 32) e.M[(i / nv) * ld + i % nv] = gM[env * nn + i];
+  if (lane < nv) {
+    e.as[lane] = gAs[env * nv + lane];
+    e.a[lane] = gA0[env * nv + lane];
   }
-  for (int i = tid; i < ns * nv; i += THREADS) e.J[i] = gJ[env * ns * nv + i];
-  for (int i = tid; i < ns; i += THREADS) {
+  for (int i = lane; i < ns * nv; i += 32) {
+    const int q = i / nv;
+    if (has(sm0, sm1, q)) e.J[rank(sm0, sm1, q) * ld + i - q * nv] = gJ[env * ns * nv + i];
+  }
+  for (int i = lane; i < ns; i += 32) {
+    if (!has(sm0, sm1, i)) continue;
     const long long g = env * ns + i;
-    e.aref[i] = gAref[g];
-    e.D[i] = static_cast<float>(gAct[g]) * (1.0f / gR[g]);
-    e.fl[i] = gFl[g];
-    e.uni[i] = gFl[g] <= 0.0f ? 1.0f : 0.0f;
+    const int k = rank(sm0, sm1, i);
+    e.aref[k] = gAref[g];
+    e.D[k] = 1.0f / gR[g];
+    e.fl[k] = gFl[g];
   }
-  for (int i = tid; i < ncj; i += THREADS) e.cJ[i] = gCJ[env * ncj + i];
-  for (int i = tid; i < R6; i += THREADS) {
+  for (int i = lane; i < R6 * nv; i += 32) {
+    const int q = i / nv, c = q / 6;
+    if ((cm >> c) & 1u) {
+      e.cJ[(6 * rank(cm, 0u, c) + q - 6 * c) * ld + i - q * nv] = gCJ[env * R6 * nv + i];
+    }
+  }
+  for (int i = lane; i < R6; i += 32) {
+    const int c = i / 6;
+    if (!((cm >> c) & 1u)) continue;
     const long long g = env * R6 + i;
-    e.aref[ns + i] = gCaref[g];
-    e.dm[i] = gDm[g];
-    e.D[ns + i] = static_cast<float>(gCact[env * C + i / 6]) * (1.0f / gCR[g]) * gDm[g];
+    const int o = 6 * rank(cm, 0u, c) + i - 6 * c;
+    e.aref[e.na + o] = gCaref[g];
+    e.dm[o] = gDm[g];
+    e.D[e.na + o] = 1.0f / gCR[g] * gDm[g];
   }
-  for (int i = tid; i < 5 * C; i += THREADS) e.mu[i] = gMu[env * 5 * C + i];
-  for (int i = tid; i < GRID; i += THREADS) e.grid[i] = gGrid[i];
-  __syncthreads();
+  for (int i = lane; i < 5 * C; i += 32) {
+    const int c = i / 5;
+    if ((cm >> c) & 1u) e.mu[5 * rank(cm, 0u, c) + i - 5 * c] = gMu[env * 5 * C + i];
+  }
+  if (lane < GRID) e.grid[lane] = gGrid[lane];
+  __syncwarp();
+  bool unit = true;
+  for (int k = lane; k < e.na; k += 32) {
+    int c = -1, nnz = 0;
+    for (int j = 0; j < nv; ++j) {
+      if (e.J[k * ld + j] != 0.0f) {
+        c = j;
+        ++nnz;
+      }
+    }
+    e.col[k] = c;
+    unit = unit && nnz <= 1;
+  }
+  e.unit = __all_sync(FULL, unit);
+  __syncwarp();
 
   float trace = 0.0f;
-  for (int k = 0; k < nv; ++k) trace += e.M[k * nv + k];
+  for (int k = 0; k < nv; ++k) trace += e.M[k * ld + k];
   const float reg = 1e-10f * trace / static_cast<float>(nv);
 
   int it = 0;
   while (it < iterations) {
-    compute_rows(e);
-    for (int k = tid; k < nv; k += THREADS) e.r[k] = e.a[k] - e.as[k];
-    __syncthreads();
-    compute_forces(e, true);
-    __syncthreads();
+    compute_rows(e, lane);
+    if (lane < nv) e.r[lane] = e.a[lane] - e.as[lane];
+    __syncwarp();
+    compute_forces(e, true, lane);
+    __syncwarp();
 
-    // g = M r - J' fs - cJ' fc; T = Hc cJ per block
-    for (int k = tid; k < nv; k += THREADS) {
-      float mr = 0.0f, jf, cf;
-      for (int j = 0; j < nv; ++j) mr += e.M[k * nv + j] * e.r[j];
-      constraint_force(e, k, &jf, &cf);
-      e.Mr[k] = mr;
-      e.g[k] = mr - jf - cf;
-    }
-    for (int idx = tid; idx < ncj; idx += THREADS) {
-      const int k = idx % nv, cd = idx / nv, c = cd / 6;
-      const float* h = e.Hc + 36 * c + 6 * (cd % 6);
-      const float* cj = e.cJ + 6 * c * nv + k;
-      float s = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) s += h[q] * cj[q * nv];
-      e.T[idx] = s;
-    }
-    __syncthreads();
-
-    // lower triangle of H = M + J' diag(cw) J + cJ' T + reg I
-    for (int idx = tid; idx < nn; idx += THREADS) {
-      const int i = idx / nv, j = idx % nv;
-      if (j > i) continue;
+    // g = M r - J' fs - cJ' fc, lane k holding g_k and (M r)_k
+    float g = 0.0f, Mr = 0.0f;
+    if (lane < nv) {
+      for (int j = 0; j < nv; ++j) Mr += e.M[lane * ld + j] * e.r[j];
       float s1 = 0.0f, s2 = 0.0f;
-      for (int q = 0; q < ns; ++q) s1 += e.J[q * nv + i] * (e.cw[q] * e.J[q * nv + j]);
-      for (int q = 0; q < R6; ++q) s2 += e.cJ[q * nv + i] * e.T[q * nv + j];
-      float h = e.M[idx] + s1;
-      if (C) h = h + s2;
-      if (i == j) h = h + reg;
-      e.H[idx] = h;
+      for (int q = 0; q < e.na; ++q) s1 += e.J[q * ld + lane] * e.f[q];
+      for (int q = 0; q < 6 * e.nc; ++q) s2 += e.cJ[q * ld + lane] * e.f[e.na + q];
+      g = Mr - s1 - s2;
     }
-    __syncthreads();
+    compute_hessian(e, reg, lane);
 
-    if (warp == 0) chol_solve(e, lane);
-    __syncthreads();
+    float Lrow[chol_warp::MAX_N];
+    chol_warp::load_row(Lrow, e.H, nv, ld, lane);
+    const float inv = chol_warp::factor(Lrow, e.H, nv, ld, lane);
+    const float p = -chol_warp::solve(Lrow, e.H, nv, ld, inv, g, lane);
+    if (lane < nv) e.p[lane] = p;
+    __syncwarp();
 
     // projections for the line search: M p, J p, cJ p
-    for (int i = tid; i < nv + rows; i += THREADS) {
-      const float* row = i < nv ? e.M + i * nv
-                                : (i - nv < ns ? e.J + (i - nv) * nv : e.cJ + (i - nv - ns) * nv);
-      float s = 0.0f;
-      for (int k = 0; k < nv; ++k) s += row[k] * e.p[k];
-      if (i < nv) e.Mp[i] = s;
-      else e.du[i - nv] = s;
+    for (int i = lane; i < nv + e.na + 6 * e.nc; i += 32) {
+      const float* row = i < nv ? e.M + i * ld : e.row(i - nv);
+      float s1 = 0.0f;
+      for (int k = 0; k < nv; ++k) s1 += row[k] * e.p[k];
+      if (i < nv) e.Mp[i] = s1;
+      else e.du[i - nv] = s1;
     }
-    __syncthreads();
+    __syncwarp();
+    const float pMp = warp_sum(lane < nv ? p * e.Mp[lane] : 0.0f);
+    const float pMr = warp_sum(lane < nv ? p * Mr : 0.0f);
 
-    float pMp = 0.0f, pMr = 0.0f;
-    for (int k = 0; k < nv; ++k) {
-      pMp += e.p[k] * e.Mp[k];
-      pMr += e.p[k] * e.Mr[k];
+    // lo = the largest grid t with phi' < 0 (else 0), hi = the smallest with
+    // phi' >= 0 (else the grid's end): grid point q on lanes q and q + 16,
+    // then the bisections across the warp
+    const int q = lane & 15;
+    const float tq = q < GRID ? e.grid[q] : T_MAX;
+    const bool neg = dphi_pair(e, tq, pMr, pMp, lane) < 0.0f && q < GRID;
+    float lo = warp_max(neg ? tq : 0.0f);
+    float hi = warp_min(neg ? T_MAX : tq);
+    for (int b = 0; b < ls_iterations; ++b) {
+      const float mid = 0.5f * (lo + hi);
+      if (dphi_warp(e, mid, pMr, pMp, lane) < 0.0f) lo = mid;
+      else hi = mid;
     }
-    for (int q = warp; q < GRID; q += WARPS) {
-      const float v = dphi(e, e.grid[q], pMr, pMp, lane);
-      if (lane == 0) e.vals[q] = v;
+
+    // accept a + t p; converged once max|t p| < tol (1 + max|a + t p|)
+    const float t = 0.5f * (lo + hi);
+    float st = 0.0f, an = 0.0f;
+    if (lane < nv) {
+      st = __fmul_rn(t, p);
+      an = __fadd_rn(e.a[lane], st);
     }
-    __syncthreads();
-    if (warp == 0) {
-      // lo = the largest grid t with phi' < 0 (else 0), hi = the smallest
-      // with phi' >= 0 (else the grid's end), then the bisections
-      float lo = 0.0f, hi = T_MAX;
-      for (int q = 0; q < GRID; ++q) {
-        const bool neg = e.vals[q] < 0.0f;
-        lo = fmaxf(lo, neg ? e.grid[q] : 0.0f);
-        hi = fminf(hi, neg ? T_MAX : e.grid[q]);
-      }
-      for (int b = 0; b < ls_iterations; ++b) {
-        const float mid = 0.5f * (lo + hi);
-        if (dphi(e, mid, pMr, pMp, lane) < 0.0f) lo = mid;
-        else hi = mid;
-      }
-      if (lane == 0) {
-        // accept a + t p; converged once max|t p| < tol (1 + max|a + t p|)
-        const float t = 0.5f * (lo + hi);
-        float max_step = 0.0f, max_a = 0.0f;
-        bool finite = true;
-        for (int k = 0; k < nv; ++k) {
-          const float st = __fmul_rn(t, e.p[k]);
-          const float an = __fadd_rn(e.a[k], st);
-          finite = finite && st == st && an == an;
-          max_step = fmaxf(max_step, fabsf(st));
-          max_a = fmaxf(max_a, fabsf(an));
-        }
-        s_t = t;
-        s_converged = finite && max_step < tol * (1.0f + max_a);
-      }
-    }
-    __syncthreads();
-    const float t = s_t;
-    for (int k = tid; k < nv; k += THREADS) e.a[k] = __fadd_rn(e.a[k], __fmul_rn(t, e.p[k]));
-    __syncthreads();
+    const bool finite = __all_sync(FULL, st == st && an == an);
+    const float max_step = warp_max(fabsf(st));
+    const float max_a = warp_max(fabsf(an));
+    if (lane < nv) e.a[lane] = an;
+    __syncwarp();
     ++it;
-    if (s_converged) break;
+    if (finite && max_step < tol * (1.0f + max_a)) break;
   }
 
   // ---- forces at the final a, and the outputs ---------------------------------
-  compute_rows(e);
-  __syncthreads();
-  compute_forces(e, false);
-  __syncthreads();
-  for (int k = tid; k < nv; k += THREADS) {
-    float jf, cf;
-    constraint_force(e, k, &jf, &cf);
-    qacc[env * nv + k] = e.a[k];
-    qfrc_out[env * nv + k] = jf + cf;
+  compute_rows(e, lane);
+  __syncwarp();
+  compute_forces(e, false, lane);
+  __syncwarp();
+  if (lane < nv) {
+    qacc[env * nv + lane] = e.a[lane];
+    qfrc_out[env * nv + lane] = constraint_force(e, lane);
   }
-  for (int i = tid; i < ns; i += THREADS) fs_out[env * ns + i] = e.f[i];
-  for (int i = tid; i < R6; i += THREADS) fc_out[env * R6 + i] = e.f[ns + i];
-  if (tid == 0 && iters_out != nullptr) iters_out[env] = it;
+  for (int i = lane; i < ns; i += 32) {
+    fs_out[env * ns + i] = has(sm0, sm1, i) ? e.f[rank(sm0, sm1, i)] : 0.0f;
+  }
+  for (int i = lane; i < R6; i += 32) {
+    const int c = i / 6;
+    const bool on = (cm >> c) & 1u;
+    fc_out[env * R6 + i] = on ? e.f[e.na + 6 * rank(cm, 0u, c) + i - 6 * c] : 0.0f;
+  }
+  if (lane == 0 && iters_out != nullptr) iters_out[env] = it;
+}
+
+// Let a block take more than 48 KB of shared memory, and the SM give shared
+// memory all it can. The attributes are set on a device's first launch and
+// again only for a larger block, not before every launch.
+constexpr int MAX_DEVICES = 64;
+size_t configured[MAX_DEVICES] = {};   // the largest block allowed so far
+
+cudaError_t configure(size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && configured[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(newton_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < MAX_DEVICES) configured[dev] = smem;
+  return e;
 }
 
 }  // namespace
@@ -471,8 +684,9 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
 // (B, ns, nv), aref, R, frictionloss (B, ns), active (B, ns) bool, cJ (B, C,
 // 6, nv), caref, cR, dm (B, C, 6), cactive (B, C) bool, mu (B, C, 5), grid
 // (15,); outputs qacc, qfrc (B, nv), fs (B, ns), fc (B, C, 6) and, unless
-// null, iters (B,) int32. Returns the CUDA error code of the launch (0 on
-// success); the caller raises on anything else.
+// null, iters (B,) int32. nv must be the one the library was built for.
+// Returns the CUDA error code of the launch (0 on success); the caller raises
+// on anything else.
 extern "C" int gqt_newton_fused_f32(
     const float* M, const float* a_smooth, const float* a0, const float* J,
     const float* aref, const float* R, const unsigned char* active, const float* fl,
@@ -481,18 +695,31 @@ extern "C" int gqt_newton_fused_f32(
     float* qfrc, int* iters, int B, int nv, int ns, int C, int iterations,
     int ls_iterations, float tol, void* stream) {
   if (B <= 0) return 0;
-  if (nv < 1 || nv > 32 || ns < 0 || ns > 64 || C < 0 || C > 32 || iterations < 0 ||
+  if (nv != GQT_NV || ns < 0 || ns > 64 || C < 0 || C > 32 || iterations < 0 ||
       ls_iterations < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * smem_floats(nv, ns, C);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  newton_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = smem_bytes(nv, ns, C);
+  const cudaError_t e = configure(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + WARPS - 1) / WARPS;
+  newton_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       M, a_smooth, a0, J, aref, R, active, fl, cJ, caref, cR, cactive, mu, dm, grid, qacc,
-      fs, fc, qfrc, iters, nv, ns, C, iterations, ls_iterations, tol);
+      fs, fc, qfrc, iters, B, ns, C, iterations, ls_iterations, tol);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Residency at (nv, ns, C): blocks of one launch that one SM holds at a time,
+// envs per block and shared-memory bytes per block. Returns the CUDA error
+// code.
+extern "C" int gqt_newton_fused_occupancy(int nv, int ns, int C, int* blocks_per_sm,
+                                          int* envs_per_block, int* smem_per_block) {
+  if (nv != GQT_NV) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(nv, ns, C);
+  *envs_per_block = WARPS;
+  *smem_per_block = static_cast<int>(smem);
+  const cudaError_t e = configure(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, newton_kernel, THREADS, smem));
 }

@@ -16,9 +16,11 @@ f_simple (B, ns), f_cone (B, C, 6), qfrc_constraint (B, nv)).
 
 On CPU tensors they run the plain version, `physics.solver.solve` (any float
 dtype). On CUDA tensors they launch the kernel (f32, nv <= 32, ns <= 64,
-C <= 32, contiguous, one device) or raise; they never fall back. The kernel
-is built with nvcc at first use (or by `build()`) under build/kernels/ and
-loaded with ctypes. `launches` counts its launches.
+C <= 32, contiguous, one device) or raise; they never fall back, not even
+with no rows at all (ns = C = 0), where the kernel writes a_smooth as the
+plain version does. The kernel is built with nvcc, one library for each nv,
+at that nv's first use (or by `build(nv)`) under build/kernels/ and loaded
+with ctypes. `launches` counts its launches.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ MAX_C = 32
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'newton_fused.cu'
 
 launches = 0   # kernel launches since the count was last set to 0
-_lib = None
+_libs = {}      # nv -> the library built for nv dofs
 
 # the Efc fields the kernel reads, in the C entry point's order
 EFC_FLOAT_FIELDS = ('J', 'aref', 'R', 'frictionloss', 'con_J', 'con_aref', 'con_R',
@@ -46,23 +48,38 @@ EFC_FLOAT_FIELDS = ('J', 'aref', 'R', 'frictionloss', 'con_J', 'con_aref', 'con_
 EFC_MASK_FIELDS = ('active', 'con_active')
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile csrc/newton_fused.cu for sm_90a if its library is missing.
-    Returns (library path, seconds spent, nvcc's output)."""
-    return build_library(SOURCE)
+def build(nv: int) -> tuple[Path, float, str]:
+    """Compile csrc/newton_fused.cu for sm_90a and nv dofs if its library is
+    missing. Returns (library path, seconds spent, nvcc's output)."""
+    return build_library(SOURCE, (f'GQT_NV={nv}',))
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
+def _library(nv: int):
+    lib = _libs.get(nv)
+    if lib is None:
+        path, _, _ = build(nv)
         lib = ctypes.CDLL(str(path))
         fn = lib.gqt_newton_fused_f32
         fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        occ = lib.gqt_newton_fused_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        occ.restype = ctypes.c_int
+        _libs[nv] = lib
+    return lib
+
+
+def occupancy(nv: int, ns: int, C: int) -> tuple[int, int, int]:
+    """(blocks per SM, envs per block, shared-memory bytes per block) of the
+    kernel at (nv, ns, C), from the CUDA occupancy query on the current
+    device."""
+    blocks, per_block, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library(nv).gqt_newton_fused_occupancy(nv, ns, C, ctypes.byref(blocks),
+                                                  ctypes.byref(per_block), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f'newton_fused occupancy query failed: CUDA error {err}')
+    return blocks.value, per_block.value, smem.value
 
 
 def check_kernel_inputs(M, a_smooth, efc: Efc, warmstart=None, iterations_out=None):
@@ -108,10 +125,26 @@ def check_kernel_inputs(M, a_smooth, efc: Efc, warmstart=None, iterations_out=No
                          f'{sorted(map(str, devices))}')
 
 
+def kernel_args(M, a_smooth, efc: Efc, a0, outputs, iterations_out, iterations,
+                ls_iterations, tol) -> tuple:
+    """The C entry point's arguments for checked inputs and the outputs
+    (qacc, f_simple, f_cone, qfrc), on the current stream."""
+    B, nv = a_smooth.shape
+    ns, C = efc.J.shape[1], efc.con_J.shape[1]
+    grid = solver._ls_grid(torch.float32, a_smooth.device)
+    tensors = (M, a_smooth, a0, efc.J, efc.aref, efc.R, efc.active, efc.frictionloss,
+               efc.con_J, efc.con_aref, efc.con_R, efc.con_active, efc.cone_mu,
+               efc.cone_dim_mask, grid, *outputs)
+    return (*(x.data_ptr() for x in tensors),
+            None if iterations_out is None else iterations_out.data_ptr(),
+            B, nv, ns, C, iterations, ls_iterations, tol,
+            torch.cuda.current_stream(a_smooth.device).cuda_stream)
+
+
 def _solve(M, a_smooth, efc: Efc, warmstart, iterations, ls_iterations, tol,
            iterations_out):
     global launches
-    B, nv = a_smooth.shape
+    B = a_smooth.shape[0]
     ns, C = efc.J.shape[1], efc.con_J.shape[1]
     tensors = [M, a_smooth, *(getattr(efc, k) for k in EFC_FLOAT_FIELDS + EFC_MASK_FIELDS)]
     tensors += [x for x in (warmstart, iterations_out) if x is not None]
@@ -119,30 +152,17 @@ def _solve(M, a_smooth, efc: Efc, warmstart, iterations, ls_iterations, tol,
         return solver.solve(M, a_smooth, efc, warmstart, iterations, ls_iterations,
                             iterations_out, _tol=tol)
     check_kernel_inputs(M, a_smooth, efc, warmstart, iterations_out)
-    if ns == 0 and C == 0:
-        return solver.solve(M, a_smooth, efc, warmstart, iterations, ls_iterations,
-                            iterations_out, _tol=tol)
-    qacc = torch.empty_like(a_smooth)
-    qfrc = torch.empty_like(a_smooth)
-    f_simple = a_smooth.new_empty(B, ns)
-    f_cone = a_smooth.new_empty(B, C, 6)
+    outputs = (torch.empty_like(a_smooth), a_smooth.new_empty(B, ns),
+               a_smooth.new_empty(B, C, 6), torch.empty_like(a_smooth))
     if B == 0:
-        return qacc, f_simple, f_cone, qfrc
+        return outputs
     a0 = a_smooth if warmstart is None else warmstart
-    grid = solver._ls_grid(torch.float32, a_smooth.device)
-    ptr = lambda x: x.data_ptr()
-    stream = torch.cuda.current_stream(a_smooth.device).cuda_stream
-    err = _library().gqt_newton_fused_f32(
-        ptr(M), ptr(a_smooth), ptr(a0), ptr(efc.J), ptr(efc.aref), ptr(efc.R),
-        ptr(efc.active), ptr(efc.frictionloss), ptr(efc.con_J), ptr(efc.con_aref),
-        ptr(efc.con_R), ptr(efc.con_active), ptr(efc.cone_mu), ptr(efc.cone_dim_mask),
-        ptr(grid), ptr(qacc), ptr(f_simple), ptr(f_cone), ptr(qfrc),
-        None if iterations_out is None else ptr(iterations_out),
-        B, nv, ns, C, iterations, ls_iterations, tol, stream)
+    err = _library(a_smooth.shape[1]).gqt_newton_fused_f32(*kernel_args(
+        M, a_smooth, efc, a0, outputs, iterations_out, iterations, ls_iterations, tol))
     if err != 0:
         raise RuntimeError(f'newton_fused kernel launch failed: CUDA error {err}')
     launches += 1
-    return qacc, f_simple, f_cone, qfrc
+    return outputs
 
 
 def solve_batched(M, a_smooth, efc: Efc, warmstart=None, iterations: int = 10,

@@ -1,10 +1,13 @@
 """Build one CUDA source of the port into a shared library with a plain C
 interface, for ctypes.
 
-Each kernel's module calls `build_library(source)` at its first launch (or
-from its own `build()`): nvcc compiles the source for sm_90a into
-build/kernels/ at the repository root, under a name that hashes the source
-and the flags, so an edited source is rebuilt and an unchanged one is not.
+Each kernel's module calls `build_library(source, defines)` at its first
+launch at a size (or from its own `build(n)`): nvcc compiles the source for
+sm_90a with the size as a macro (`-DGQT_NV=18`), so every loop over it has a
+trip count known at compile time, into build/kernels/ at the repository
+root, under a name that hashes the source, every header (`*.cuh`) beside
+it, the flags and the macros: an edited source or header, or another size,
+is built anew, and an unchanged one is not.
 """
 
 from __future__ import annotations
@@ -28,18 +31,31 @@ def _nvcc() -> str:
     return path
 
 
-def build_library(source: Path) -> tuple[Path, float, str]:
-    """Compile `source` for sm_90a if its library is missing. Returns
-    (library path, seconds spent, nvcc's output)."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f'lib{source.stem}_{tag}.so'
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return NVCC_FLAGS + [f'-D{d}' for d in defines]
+
+
+def library_tag(source: Path, defines: tuple[str, ...] = ()) -> str:
+    """Hash of the source, of every `*.cuh` in its directory (by name, then
+    bytes), of the flags and of the macros (`NAME=value`): the build's name
+    changes with any of them."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
+    h.update(' '.join(_flags(defines)).encode())
+    return h.hexdigest()[:12]
+
+
+def build_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[Path, float, str]:
+    """Compile `source` for sm_90a with the macros `defines` if its library
+    is missing. Returns (library path, seconds spent, nvcc's output)."""
+    lib = BUILD_DIR / f'lib{source.stem}_{library_tag(source, defines)}.so'
     if lib.exists():
         return lib, 0.0, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(source)],
+    proc = subprocess.run([_nvcc(), *_flags(defines), '-o', str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed on {source.name} ({proc.returncode}):\n'

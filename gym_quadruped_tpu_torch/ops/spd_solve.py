@@ -11,9 +11,10 @@ the implicit-damping Euler update (nv = 18 for every shipped robot).
   * on CUDA tensors it launches the kernel of csrc/spd_solve.cu (f32,
     n <= 32, contiguous) or raises. It never falls back.
 
-The kernel is built with nvcc into a shared library with a plain C interface
-at first use (or by `build()`), under build/kernels/ at the repository root,
-and loaded with ctypes. `launches` counts the kernel's launches.
+The kernel is built with nvcc into a shared library with a plain C interface,
+one for each size n, at that size's first use (or by `build(n)`), under
+build/kernels/ at the repository root, and loaded with ctypes. `launches`
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ MAX_N = 32
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'spd_solve.cu'
 
 launches = 0   # kernel launches since the count was last set to 0
-_lib = None
+_libs = {}      # n -> the library built for systems of size n
 
 
 def unrolled_chol_solve_torch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,23 +63,37 @@ def unrolled_chol_solve_torch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile csrc/spd_solve.cu for sm_90a if its library is missing.
-    Returns (library path, seconds spent, nvcc's output)."""
-    return build_library(SOURCE)
+def build(n: int) -> tuple[Path, float, str]:
+    """Compile csrc/spd_solve.cu for sm_90a and systems of size n if its
+    library is missing. Returns (library path, seconds spent, nvcc's
+    output)."""
+    return build_library(SOURCE, (f'GQT_N={n}',))
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
+def _library(n: int):
+    lib = _libs.get(n)
+    if lib is None:
+        path, _, _ = build(n)
         lib = ctypes.CDLL(str(path))
         fn = lib.gqt_spd_solve_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        occ = lib.gqt_spd_solve_occupancy
+        occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        occ.restype = ctypes.c_int
+        _libs[n] = lib
+    return lib
+
+
+def occupancy(n: int) -> tuple[int, int]:
+    """(blocks per SM, systems per block) of the kernel at size n, from the
+    CUDA occupancy query on the current device."""
+    blocks, per_block = ctypes.c_int(), ctypes.c_int()
+    err = _library(n).gqt_spd_solve_occupancy(n, ctypes.byref(blocks), ctypes.byref(per_block))
+    if err != 0:
+        raise RuntimeError(f'spd_solve occupancy query failed: CUDA error {err}')
+    return blocks.value, per_block.value
 
 
 def check_kernel_inputs(A: torch.Tensor, b: torch.Tensor):
@@ -108,8 +123,8 @@ def spd_solve_batched(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[0] == 0:
         return x
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = _library().gqt_spd_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                       b.shape[0], b.shape[1], stream)
+    err = _library(b.shape[1]).gqt_spd_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                                 b.shape[0], b.shape[1], stream)
     if err != 0:
         raise RuntimeError(f'spd_solve kernel launch failed: CUDA error {err}')
     launches += 1

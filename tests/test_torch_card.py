@@ -9,6 +9,8 @@ only the port's dependencies are installed:
     python -m pytest tests/test_torch_card.py -m cuda --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,9 @@ import torch
 from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
+from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import engine, solver
+from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
 
 
 @pytest.fixture
@@ -28,7 +32,8 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,n', [(4096, 18), (4097, 18), (100, 7), (64, 32)])
+@pytest.mark.parametrize('B,n', [(4096, 18), (4097, 18), (100, 7), (64, 32), (4097, 32),
+                                 (4097, 1)])
 def test_kernel_matches_plain(card, B, n):
     gen = torch.Generator(device=card).manual_seed(B + n)
     X = torch.randn(B, n, n, generator=gen, device=card)
@@ -51,31 +56,116 @@ def test_kernel_raises_on_f64(card):
         spd.spd_solve_batched(A, torch.ones(4, 18, dtype=torch.float64, device=card))
 
 
+def _soft_states(card, B, limits=False):
+    """Soft contact states, which f32 Newton solves to convergence: the
+    keyframe lowered up to 5 mm, qvel 0, small torques; with `limits`, the
+    first limited joint (a hip) of every fourth env 0.01 rad past its range."""
+    dm = load_model('spot', 'flat', device=card)
+    m = dm.m
+    rng = np.random.RandomState(B)
+    qpos = np.tile(m.key_qpos[0], (B, 1))
+    qpos[:, 2] -= rng.uniform(0, 0.005, B)
+    if limits:
+        j = constraint_layout(m).lim_jnts[0]
+        qpos[::4, m.jnt_qposadr[j]] = m.jnt_range[j, 1] + 0.01
+    ctrl = rng.uniform(-0.5, 0.5, (B, m.nu))
+    as_card = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)
+    fwd = engine.forward(dm, as_card(qpos), torch.zeros(B, m.nv, device=card), as_card(ctrl))
+    assert bool(fwd.efc.con_active.any())
+    return fwd.M, fwd.qacc_smooth, fwd.efc
+
+
+def _check_newton(M, a_smooth, efc, form):
+    before = nf.launches
+    it = torch.zeros(a_smooth.shape[0], dtype=torch.int32, device=a_smooth.device)
+    got = getattr(nf, form)(M, a_smooth, efc, iterations_out=it)
+    torch.cuda.synchronize()
+    assert nf.launches == before + 1
+    it_ref = torch.zeros_like(it)
+    ref = solver.solve(M, a_smooth, efc, iterations_out=it_ref,
+                       _tol=0.0 if form == 'solve_batched_bt' else None)
+    # the plain version's own f32 rounding differs: 1e-4 of 1 + max|ref|
+    for g, r in zip(got, ref):
+        if r.numel():
+            err = ((g - r).abs().max() / (1 + r.abs().max())).item()
+            assert err < 1e-4, err
+    # f32 rounding (~3e-7 of 1 + max|qacc|) is the order of the converged step
+    # (tol 1e-6): an env near convergence may stop one iteration apart
+    assert int((it != it_ref).sum()) <= 0.02 * it.numel()
+    assert abs(it.float().mean() - it_ref.float().mean()).item() <= 0.01
+    # rows compacted away get exact zeros
+    assert bool((got[1][~efc.active] == 0).all() and (got[2][~efc.con_active] == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('B', [64, 4097])
 @pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
 def test_newton_kernel_matches_plain(card, B, form):
-    # soft contact states, which f32 Newton solves to convergence: the
-    # keyframe lowered up to 5 mm, qvel 0, small torques
-    dm = load_model('spot', 'flat', device=card)
-    rng = np.random.RandomState(B)
-    qpos = np.tile(dm.m.key_qpos[0], (B, 1))
-    qpos[:, 2] -= rng.uniform(0, 0.005, B)
-    ctrl = rng.uniform(-0.5, 0.5, (B, dm.m.nu))
-    as_card = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)
-    fwd = engine.forward(dm, as_card(qpos), torch.zeros(B, dm.m.nv, device=card),
-                         as_card(ctrl))
-    assert bool(fwd.efc.con_active.any())
-    before = nf.launches
-    got = getattr(nf, form)(fwd.M, fwd.qacc_smooth, fwd.efc)
-    torch.cuda.synchronize()
-    assert nf.launches == before + 1
-    ref = solver.solve(fwd.M, fwd.qacc_smooth, fwd.efc,
-                       _tol=0.0 if form == 'solve_batched_bt' else None)
-    # the plain version's own f32 rounding differs: 1e-4 of 1 + max|ref|
-    for g, r in zip(got, ref):
-        err = ((g - r).abs().max() / (1 + r.abs().max())).item()
-        assert err < 1e-4, err
+    _check_newton(*_soft_states(card, B), form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_active_limits(card, form):
+    M, a_smooth, efc = _soft_states(card, 4097, limits=True)
+    n_active = efc.active.sum(1)
+    assert int(n_active.max()) > int(n_active.min())   # mixed active and inactive limits
+    _check_newton(M, a_smooth, efc, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_without_rows(card, form):
+    # ns = C = 0 still launches the kernel, which writes a_smooth
+    M, a_smooth, efc = _soft_states(card, 4097)
+    efc = dataclasses.replace(efc, **{f.name: getattr(efc, f.name)[:, :0].contiguous()
+                                      for f in dataclasses.fields(efc)})
+    _check_newton(M, a_smooth, efc, form)
+    qacc = getattr(nf, form)(M, a_smooth, efc, warmstart=torch.zeros_like(a_smooth))[0]
+    assert torch.equal(qacc, a_smooth)
+
+
+def synthetic_rows(B, nv=12, ns=8, C=3, seed=0, device='cpu'):
+    """A seeded, well-conditioned Newton problem of any size: M = X X'/nv + I,
+    simple rows that are unit rows in even envs and dense in odd ones (half
+    Huber, half one-sided), random cone blocks whose friction R follows mu as
+    make_efc's does (R_i = R_n (mu_0 / mu_i)^2, which keeps the cone convex);
+    about 70% of rows active."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(B, nv, nv)
+    M = X @ X.transpose(0, 2, 1) / nv + np.eye(nv)
+    J = np.zeros((B, ns, nv))
+    J[:, np.arange(ns), rng.randint(0, nv, ns)] = rng.choice([-1.0, 1.0], ns)
+    J[1::2] += 0.3 * rng.randn(*J[1::2].shape)
+    mu0 = rng.uniform(0.5, 1.0, (B, C, 1))
+    mu = np.concatenate([mu0, mu0, np.full((B, C, 1), 0.01), np.full((B, C, 2), 0.001)], -1)
+    R_n = rng.uniform(0.5, 2.0, (B, C, 1))
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=device).contiguous()
+    efc = pcon.Efc(
+        J=t(J), aref=t(rng.randn(B, ns)), R=t(rng.uniform(0.5, 2.0, (B, ns))),
+        active=t(rng.rand(B, ns) < 0.7, torch.bool),
+        frictionloss=t(np.where(np.arange(ns) % 2 == 0, rng.uniform(0.1, 1.0, (B, ns)), 0.0)),
+        con_J=t(0.3 * rng.randn(B, C, 6, nv)), con_aref=t(rng.randn(B, C, 6)),
+        con_R=t(np.concatenate([R_n, R_n * (mu0 / mu) ** 2], -1)),
+        con_active=t(rng.rand(B, C) < 0.7, torch.bool), cone_mu=t(mu),
+        cone_dim_mask=t(np.ones((B, C, 6))), cone_dist=t(np.zeros((B, C))),
+        cone_sel=t(np.zeros((B, C)), torch.int64))
+    return t(M), t(rng.randn(B, nv)), efc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_any_size_and_dense_rows(card, form):
+    # nv = 12 builds the kernel for 12 dofs; odd envs' dense simple rows
+    # take the dense J' diag(cw) J
+    _check_newton(*synthetic_rows(4097, device=card), form)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_residency(card):
+    # 16 envs per SM at the main path's sizes (nv 18, ns 24, C 10)
+    blocks, envs, smem = nf.occupancy(18, 24, 10)
+    assert blocks * envs >= 16, (blocks, envs, smem)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,11 @@ on spot/flat contact states in f64.
   XLA twin of that kernel: 1e-9.
 * CPU tensors take the plain version and count no launch; the card path
   checks its inputs before it builds or launches anything.
+* The premise of the kernel's row compaction, in f64: on spot/flat states
+  with active and inactive joint-limit rows and cone blocks, the plain
+  solve of each env on its full rows and on its active rows alone give the
+  same qacc and qfrc to 1e-12 and the same iteration count, and the full
+  solve's forces on the inactive rows are exactly 0.
 
 The CUDA kernel itself is held against the plain version in
 tests/test_torch_card.py and chip_smoke.py. The Pallas kernels are not run
@@ -26,8 +31,10 @@ from gym_quadruped_tpu.models.builder import load_model as jload
 from gym_quadruped_tpu.physics import constraints as jcon
 from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu.physics import solver as jsol
+from gym_quadruped_tpu_torch.models.model import load_model as pload
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.physics import constraints as pcon
+from gym_quadruped_tpu_torch.physics import engine as peng
 from gym_quadruped_tpu_torch.physics import solver as psol
 from test_torch_step import _contact_state
 
@@ -105,6 +112,69 @@ def test_cpu_routes_to_plain_and_counts_no_launch(rows):
     # per-env stopping ends within the cap; the fixed count runs every env
     assert bool(((it >= 1) & (it <= 10)).all())
     assert it_bt.tolist() == [7] * B
+
+
+SIMPLE_FIELDS = ('J', 'aref', 'R', 'active', 'frictionloss')
+CONE_FIELDS = ('con_J', 'con_aref', 'con_R', 'con_active', 'cone_mu', 'cone_dim_mask',
+               'cone_dist', 'cone_sel')
+
+
+@pytest.fixture(scope='module')
+def limit_rows():
+    """M, a_smooth and the rows of 6 soft spot/flat states in f64 (the
+    keyframe lowered up to 5 mm, qvel 0, small torques), with the first
+    limited joint (a hip) of every other env 0.01 rad past its range."""
+    B = 6
+    dm = pload('spot', 'flat', device='cpu', dtype=torch.float64)
+    m = dm.m
+    rng = np.random.RandomState(7)
+    qpos = np.tile(m.key_qpos[0], (B, 1))
+    qpos[:, 2] -= rng.uniform(0, 0.005, B)
+    j = pcon.constraint_layout(m).lim_jnts[0]
+    qpos[::2, m.jnt_qposadr[j]] = m.jnt_range[j, 1] + 0.01
+    ctrl = rng.uniform(-0.5, 0.5, (B, m.nu))
+    fwd = peng.forward(dm, torch.as_tensor(qpos), torch.zeros(B, m.nv, dtype=torch.float64),
+                       torch.as_tensor(ctrl))
+    efc = fwd.efc
+    # both kinds of row are there: active and inactive limits, active and
+    # inactive cone blocks
+    for mask in (efc.active, efc.con_active):
+        assert bool(mask.any()) and not bool(mask.all())
+    assert bool(efc.active[::2].sum(1).gt(efc.active[1::2].sum(1)).all())
+    return fwd.M, fwd.qacc_smooth, efc
+
+
+def _env_rows(efc, e, compact):
+    """Env e's rows (batch of 1): all of them, or only its active simple rows
+    and cone blocks, in their order."""
+    s = efc.active[e].nonzero()[:, 0] if compact else slice(None)
+    c = efc.con_active[e].nonzero()[:, 0] if compact else slice(None)
+    rows = {k: getattr(efc, k)[e:e + 1, s] for k in SIMPLE_FIELDS}
+    rows.update({k: getattr(efc, k)[e:e + 1, c] for k in CONE_FIELDS})
+    return pcon.Efc(**{k: v.contiguous() for k, v in rows.items()})
+
+
+@pytest.mark.parametrize('start', ['a_smooth', 'zeros'])
+def test_inactive_rows_change_nothing(limit_rows, start):
+    M, a_smooth, efc = limit_rows
+    for e in range(a_smooth.shape[0]):
+        M_e, a_e = M[e:e + 1], a_smooth[e:e + 1]
+        warm = None if start == 'a_smooth' else torch.zeros_like(a_e)
+        it_full, it_act = (torch.zeros(1, dtype=torch.int32) for _ in range(2))
+        full = psol.solve(M_e, a_e, _env_rows(efc, e, False), warm, iterations_out=it_full)
+        act = psol.solve(M_e, a_e, _env_rows(efc, e, True), warm, iterations_out=it_act)
+        scale = 1 + full[0].abs().max().item()
+        for i, name in ((0, 'qacc'), (3, 'qfrc')):
+            np.testing.assert_allclose(act[i].numpy(), full[i].numpy(), rtol=0,
+                                       atol=1e-12 * scale, err_msg=f'env {e} {name}')
+        assert it_act.item() == it_full.item()
+        # the dropped rows' forces are exact zeros; the kept ones agree
+        assert bool((full[1][0, ~efc.active[e]] == 0).all())
+        assert bool((full[2][0, ~efc.con_active[e]] == 0).all())
+        np.testing.assert_allclose(act[1].numpy(), full[1][:, efc.active[e]].numpy(),
+                                   rtol=0, atol=1e-12 * scale)
+        np.testing.assert_allclose(act[2].numpy(), full[2][:, efc.con_active[e]].numpy(),
+                                   rtol=0, atol=1e-12 * scale)
 
 
 def _meta_rows(nv=18, ns=24, C=10, dtype=torch.float32):
