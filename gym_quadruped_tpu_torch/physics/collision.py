@@ -8,10 +8,13 @@ pair owns a fixed number of slots, always computed and masked later by
 (robot); `dist` is the signed separation (negative = penetration) and `pos`
 the midpoint.
 
-Ported pair groups: plane-sphere and sphere-sphere (every pair of spot/flat).
-`collide` raises NotImplementedError for any other group. The slot layout
-(`contact_layout`) covers every pair type of the reference, so the static
-tables agree for every model.
+Ported pair groups: plane against sphere, capsule and box; world box against
+sphere and capsule; sphere-sphere, sphere-capsule, sphere-box,
+capsule-capsule, capsule-box (the CCD of physics/ccd.py) and box-box: every
+group of go2's flat, ramp, slippery and stairs scenes. `collide` raises
+NotImplementedError for any other group (cylinder, hfield, mesh). The slot
+layout (`contact_layout`) covers every pair type of the reference, so the
+static tables agree for every model.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from gym_quadruped_tpu_torch.models.model import (
     DeviceModel,
     Model,
 )
+from gym_quadruped_tpu_torch.physics import ccd
 
 
 # ---------------------------------------------------------------------------------
@@ -173,24 +177,302 @@ def _pair_groups(m: Model):
 
 
 # ---------------------------------------------------------------------------------
-# primitive tests: (B, G, ...) poses in, (B, G) dist, (B, G, 3) pos and normal out
+# primitive tests: poses (B, G, 3) and (B, G, 3, 3), sizes (G, 3) or (G,) in;
+# dist (B, G, k), pos and normal (B, G, k, 3) out, k slots per pair
 # ---------------------------------------------------------------------------------
+
+_BOX_CORNER_SIGNS = np.array(
+    [[-1, -1, -1], [1, -1, -1], [-1, 1, -1], [1, 1, -1],
+     [-1, -1, 1], [1, -1, 1], [-1, 1, 1], [1, 1, 1]], np.float64)
+
+_dot, _cross, _norm = ccd._dot, ccd._cross, ccd._norm
+
+
+def _deepest_k(d, pos, n, k):
+    """The k smallest-dist candidates of d (..., c), pos and n (..., c, 3),
+    in ascending order, the first index first among equal distances."""
+    idx = torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    take = lambda x: torch.take_along_dim(x, idx[..., None], dim=-2)
+    return torch.take_along_dim(d, idx, dim=-1), take(pos), take(n)
+
 
 def _plane_sphere(ppos, pmat, center, radius):
     n = pmat[..., :, 2]
-    d = (n * (center - ppos)).sum(-1) - radius
+    d = _dot(n, center - ppos) - radius
     pos = center - n * (radius + 0.5 * d)[..., None]
-    return d, pos, n
+    return d[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _plane_capsule(ppos, pmat, cpos, cmat, radius, halflen):
+    """Both end spheres of the capsule against the plane."""
+    n = pmat[..., :, 2]
+    axis = cmat[..., :, 2] * halflen[:, None]
+    ends = torch.stack([cpos + axis, cpos - axis], -2)             # (B, G, 2, 3)
+    d = _dot(n[..., None, :], ends - ppos[..., None, :]) - radius[:, None]
+    pos = ends - n[..., None, :] * (radius[:, None] + 0.5 * d)[..., None]
+    return d, pos, n[..., None, :].expand_as(pos)
+
+
+def _box_corners(p, R, size, signs):
+    """(..., 8, 3) world corners of boxes p (..., 3), R (..., 3, 3) with
+    sizes (..., 3) that broadcast against them, in the order of `signs`
+    (8, 3)."""
+    local = signs * size[..., None, :]                             # (..., 8, 3)
+    return p[..., None, :] + (R[..., None, :, :] * local[..., None, :]).sum(-1)
+
+
+def _plane_box(ppos, pmat, bpos, bmat, size, signs):
+    """The 4 deepest of the box's 8 corners against the plane."""
+    n = pmat[..., :, 2]
+    d_axis = ccd._dotR(n, bmat) * size                             # (B, G, 3)
+    center_d = _dot(n, bpos - ppos)
+    depths = center_d[..., None] + (signs * d_axis[..., None, :]).sum(-1)   # (B, G, 8)
+    corners = _box_corners(bpos, bmat, size, signs)
+    d4, c4, _ = _deepest_k(depths, corners, corners, 4)
+    pos = c4 - 0.5 * d4[..., None] * n[..., None, :]
+    return d4, pos, n[..., None, :].expand_as(pos)
+
+
+def _points_in_box_local(local, size):
+    """Points (..., 3) in a box's local frame against the box (size
+    broadcasting against them): (dist, surface point, outward local normal).
+    A point inside leaves along the axis of least depth, the first axis on
+    ties."""
+    clamped = torch.clamp(local, -size, size)
+    delta = local - clamped
+    dist_out = _norm(delta)
+    inside = dist_out < 1e-12
+    depth = size - local.abs()
+    dmin = depth.min(-1).values
+    e0, e1, e2 = (depth == dmin[..., None]).unbind(-1)
+    first = torch.stack([e0, e1 & ~e0, e2 & ~(e0 | e1)], -1)
+    sign = torch.where(local >= 0, 1.0, -1.0).to(local.dtype)
+    n_in = first.to(local.dtype) * sign
+    surf_in = torch.where(first, sign * size, local)
+    n_out = delta / torch.clamp_min(dist_out, 1e-12)[..., None]
+    n_local = torch.where(inside[..., None], n_in, n_out)
+    surf = torch.where(inside[..., None], surf_in, clamped)
+    d = torch.where(inside, -dmin, dist_out)
+    return d, surf, n_local
+
+
+def _box_sphere(bpos, bmat, size, center, radius):
+    """Sphere against box by the closest point, normal box -> sphere."""
+    local = ccd._dotR(center - bpos, bmat)
+    d, surf, n_local = _points_in_box_local(local, size)
+    d = d - radius
+    n = ccd._dotRT(n_local, bmat)
+    pos = ccd._dotRT(surf, bmat) + bpos + 0.5 * d[..., None] * n
+    return d[..., None], pos[..., None, :], n[..., None, :]
 
 
 def _sphere_sphere(p1, r1, p2, r2, up):
     d12 = p2 - p1
-    dlen = torch.linalg.vector_norm(d12, dim=-1)
+    dlen = _norm(d12)
     n = torch.where((dlen > 1e-12)[..., None],
                     d12 / torch.clamp_min(dlen, 1e-12)[..., None], up)
     dist = dlen - r1 - r2
     pos = p1 + n * (r1 + 0.5 * dist)[..., None]
-    return dist, pos, n
+    return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _closest_on_segment(p, a, b):
+    ab = b - a
+    t = torch.clamp(_dot(p - a, ab) / torch.clamp_min(_dot(ab, ab), 1e-30), 0.0, 1.0)
+    return a + t[..., None] * ab
+
+
+def _sphere_capsule(c, r_s, cpos, cmat, r_c, halflen, up):
+    axis = cmat[..., :, 2] * halflen[:, None]
+    q = _closest_on_segment(c, cpos - axis, cpos + axis)
+    return _sphere_sphere(c, r_s, q, r_c, up)
+
+
+def _segment_segment(a1, b1, a2, b2):
+    """Closest points between segments (a1, b1) and (a2, b2) (Ericson
+    5.1.9: s from the unclamped solution, t from s, then s again when t
+    was clamped)."""
+    d1 = b1 - a1
+    d2 = b2 - a2
+    r = a1 - a2
+    a = _dot(d1, d1)
+    e = _dot(d2, d2)
+    f = _dot(d2, r)
+    c = _dot(d1, r)
+    b = _dot(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(denom > 1e-14, torch.clamp(
+        (b * f - c * e) / torch.clamp_min(denom, 1e-14), 0.0, 1.0), 0.0)
+    t = (b * s + f) / torch.clamp_min(e, 1e-30)
+    t_cl = torch.clamp(t, 0.0, 1.0)
+    s = torch.where(t != t_cl,
+                    torch.clamp((t_cl * b - c) / torch.clamp_min(a, 1e-30), 0.0, 1.0), s)
+    return a1 + d1 * s[..., None], a2 + d2 * t_cl[..., None]
+
+
+def _capsule_capsule(p1, R1, r1, h1, p2, R2, r2, h2, up):
+    ax1 = R1[..., :, 2] * h1[:, None]
+    ax2 = R2[..., :, 2] * h2[:, None]
+    q1, q2 = _segment_segment(p1 - ax1, p1 + ax1, p2 - ax2, p2 + ax2)
+    return _sphere_sphere(q1, r1, q2, r2, up)
+
+
+def _box_box(p1, R1, s1, p2, R2, s2, signs):
+    """Box against box: 17 candidates, of which the 4 deepest are kept.
+
+    16 corner-in-box tests (box 2's corners in box 1, normal outward of box
+    1; box 1's corners in box 2, normal negated) and one edge-edge
+    candidate: the SAT minimum over the 9 edge cross axes, whose support
+    edges give the closest-point contact. The edge candidate is dropped
+    (dist 1e9) when the boxes are separated along any axis, when a
+    penetrating corner candidate lies within 2 mm of it, or when its depth
+    exceeds the least face overlap."""
+    big = 1e9
+    # ---- corners: side 0 tests box 2's corners in box 1, side 1 the reverse
+    Pa, Ra = torch.stack([p1, p2], -2), torch.stack([R1, R2], -3)   # (B, G, 2, ...)
+    Pb, Rb = torch.stack([p2, p1], -2), torch.stack([R2, R1], -3)
+    Sa, Sb = torch.stack([s1, s2], -2), torch.stack([s2, s1], -2)   # (G, 2, 3)
+    cw = _box_corners(Pb, Rb, Sb, signs)                           # (B, G, 2, 8, 3)
+    loc = ccd._dotR(cw - Pa[..., None, :], Ra[..., None, :, :])
+    d_c, sl, nl = _points_in_box_local(loc, Sa[..., None, :])
+    pw = ccd._dotRT(sl + 0.5 * d_c[..., None] * nl, Ra[..., None, :, :]) + Pa[..., None, :]
+    nw = ccd._dotRT(nl, Ra[..., None, :, :])
+    nw = torch.cat([nw[..., :1, :, :], -nw[..., 1:, :, :]], -3)
+    shp = d_c.shape[:-2] + (16,)
+    d_c, pw, nw = d_c.reshape(shp), pw.reshape(shp + (3,)), nw.reshape(shp + (3,))
+
+    # ---- edge-edge: SAT over the 6 face axes and the 9 cross axes
+    T = p2 - p1
+    ax1, ax2 = R1.transpose(-1, -2), R2.transpose(-1, -2)          # rows = box axes
+
+    def overlap(L):   # L (B, G, ..., 3)
+        e = L.dim() - 3
+        A1 = ax1[(...,) + (None,) * e + (slice(None),) * 2]
+        A2 = ax2[(...,) + (None,) * e + (slice(None),) * 2]
+        S1 = s1[(slice(None),) + (None,) * e + (slice(None),)]
+        S2 = s2[(slice(None),) + (None,) * e + (slice(None),)]
+        Te = T[(...,) + (None,) * e + (slice(None),)]
+        r1 = (S1 * (A1 * L[..., None, :]).sum(-1).abs()).sum(-1)
+        r2 = (S2 * (A2 * L[..., None, :]).sum(-1).abs()).sum(-1)
+        return r1 + r2 - _dot(Te, L).abs()
+
+    ov = overlap(torch.cat([ax1, ax2], -2))                        # (B, G, 6)
+    sep_face = (-ov).max(-1).values
+    min_face = ov.min(-1).values
+
+    L = _cross(ax1[..., :, None, :], ax2[..., None, :, :]).flatten(-3, -2)   # (B, G, 9, 3)
+    nl_ = torch.sqrt(torch.clamp_min(_dot(L, L), 1e-30))
+    ok = nl_ > 1e-8
+    Lu = L / nl_[..., None]
+    st = torch.where(_dot(T[..., None, :], Lu) >= 0, 1.0, -1.0).to(L.dtype)
+    Lu = st[..., None] * Lu
+    dep = overlap(Lu)                                              # (B, G, 9)
+    sep = torch.maximum(sep_face, torch.where(ok, -dep, -big).max(-1).values)
+    # support edges: box 1's corner extreme along +Lu on its other two
+    # axes, box 2's along -Lu
+    j1 = torch.arange(3, device=L.device).repeat_interleave(3)     # cross axis k = 3 j1 + j2
+    j2 = torch.arange(3, device=L.device).repeat(3)
+    kk = torch.arange(3, device=L.device)
+    other1 = (kk[None, :] != j1[:, None]).to(L.dtype)              # (9, 3)
+    other2 = (kk[None, :] != j2[:, None]).to(L.dtype)
+    g1 = (ax1[..., None, :, :] * Lu[..., None, :]).sum(-1)         # (B, G, 9, 3)
+    g2 = (ax2[..., None, :, :] * Lu[..., None, :]).sum(-1)
+    sg1 = torch.where(g1 >= 0, 1.0, -1.0).to(L.dtype) * other1 * s1[:, None, :]
+    sg2 = torch.where(g2 >= 0, -1.0, 1.0).to(L.dtype) * other2 * s2[:, None, :]
+    c1 = p1[..., None, :] + (sg1[..., None] * ax1[..., None, :, :]).sum(-2)
+    c2 = p2[..., None, :] + (sg2[..., None] * ax2[..., None, :, :]).sum(-2)
+    u, v = ax1[..., j1, :], ax2[..., j2, :]                        # (B, G, 9, 3)
+    h1, h2 = s1[:, j1], s2[:, j2]                                  # (G, 9)
+    w0 = c1 - c2
+    b_uv = _dot(u, v)
+    d_u = _dot(u, w0)
+    d_v = _dot(v, w0)
+    den = torch.clamp_min(1.0 - b_uv * b_uv, 1e-12)
+    t_u = torch.clamp((b_uv * d_v - d_u) / den, -h1, h1)
+    # -d_v as in the reference (the closest point on v is d_v + t_u b_uv):
+    # kept for parity, it moves only this candidate's pos
+    t_v = torch.clamp(t_u * b_uv - d_v, -h2, h2)
+    t_u = torch.clamp(t_v * b_uv - d_u, -h1, h1)
+    mid = 0.5 * ((c1 + t_u[..., None] * u) + (c2 + t_v[..., None] * v))
+    d_e = torch.where(ok, -dep, big)
+    best_d, best = d_e.min(-1)                                     # first index on ties
+    mid, Lu = ccd._take(mid, best), ccd._take(Lu, best)
+    near_corner = ((((pw - mid[..., None, :]) ** 2).sum(-1) < 4e-6) & (d_c < 0)).any(-1)
+    d_edge = torch.where((sep > 0) | near_corner | (-best_d > min_face), big, best_d)
+
+    d = torch.cat([d_c, d_edge[..., None]], -1)
+    pos = torch.cat([pw, mid[..., None, :]], -2)
+    n = torch.cat([nw, Lu[..., None, :]], -2)
+    return _deepest_k(d, pos, n, 4)
+
+
+def _cap_box(p1, R1, radius, halflen, p2, R2, size, signs):
+    """Capsule (geom A) against box (geom B) by the reference's decoded
+    native-CCD + multiccd pipeline: SAT over 16 candidate axes, 16 rounds of
+    pattern refinement and a snap onto the tie lattice; then the 4 perturbed
+    configurations (8 rounds from r0 8e-3 and a snap each), their witnesses,
+    and the 5-slot manifold. radius and halflen (G,), size (G, 3). Normal A
+    -> B."""
+    rad1, hl1, size1 = radius[:, None], halflen[:, None], size[:, None, :]
+
+    def depth_fn(d):                        # d (B, G, N, 3)
+        return (ccd.supval_cap(d, p1[..., None, :], R1[..., None, :, :], rad1, hl1)
+                + ccd.supval_box(-d, p2[..., None, :], R2[..., None, :, :], size1))
+
+    a = R1[..., :, 2]
+    t = torch.clamp(_dot(p2 - p1, a), -halflen, halflen)
+    corners = _box_corners(p2, R2, size, signs)                    # (B, G, 8, 3)
+    tc = torch.clamp(_dot(corners - p1[..., None, :], a[..., None, :]), -hl1, hl1)
+    rad_corner = corners - (p1[..., None, :] + tc[..., None] * a[..., None, :])
+    b0, b1, b2 = R2[..., :, 0], R2[..., :, 1], R2[..., :, 2]
+    cands = torch.cat([torch.stack([
+        b0, b1, b2, a, _cross(b0, a), _cross(b1, a), _cross(b2, a),
+        (p1 + t[..., None] * a) - p2], -2), rad_corner], -2)       # (B, G, 16, 3)
+    d0_depth, d0 = ccd.best_axis(depth_fn, cands)
+    depth0, n0 = ccd.pattern_refine(depth_fn, d0, d0_depth, rounds=16)
+    axes0 = torch.stack([a, b0, b1, b2], -2)
+    depth0, n0 = ccd.snap_polish(depth_fn, depth0, n0, axes0)
+
+    # the 4 perturbed configurations, on an axis of 4 after (B, G)
+    Ra, Rb = ccd.perturb_rots(n0)                                  # (B, G, 4, 3, 3)
+    R1p, R2p = Ra @ R1[..., None, :, :], Rb @ R2[..., None, :, :]
+    p1p, p2p = p1[..., None, :], p2[..., None, :]
+    rad2, hl2, size2 = radius[:, None, None], halflen[:, None, None], size[:, None, None, :]
+
+    def depth_fn_p(d):                      # d (B, G, 4, 3) or (B, G, 4, N, 3)
+        if d.dim() == 4:
+            return (ccd.supval_cap(d, p1p, R1p, rad1, hl1)
+                    + ccd.supval_box(-d, p2p, R2p, size1))
+        return (ccd.supval_cap(d, p1p[..., None, :], R1p[..., None, :, :], rad2, hl2)
+                + ccd.supval_box(-d, p2p[..., None, :], R2p[..., None, :, :], size2))
+
+    n0b = n0[..., None, :].expand(n0.shape[:-1] + (4, 3))
+    depth_p, n_p = ccd.pattern_refine(depth_fn_p, n0b, depth_fn_p(n0b), rounds=8, r0=8e-3)
+    axes_p = torch.cat([R1p[..., :, 2][..., None, :], R2p.transpose(-1, -2)], -2)
+    depth_p, n_p = ccd.snap_polish(depth_fn_p, depth_p, n_p, axes_p)
+    xa = ccd.support_cap(n_p, p1p, R1p, rad1, hl1)
+    xb = ccd.support_box(-n_p, p2p, R2p, size1)
+    # endpoint bias for tie-degenerate tilts: +-(t . a) 2 halflen a per config
+    t1b, t2b = ccd.tangents(n0)
+    ta1, ta2 = _dot(t1b, a), _dot(t2b, a)
+    bias = (torch.stack([ta1, -ta1, ta2, -ta2], -1)
+            * (2.0 * hl1))[..., None] * a[..., None, :]            # (B, G, 4, 3)
+    m_ax, m_sgn = ccd.cap_face(n0, R1)
+    f_mask, f_sgn = ccd.box_face(-n0, R2)
+    w0 = ccd.pocs(
+        0.5 * (ccd.support_cap(n0, p1, R1, radius, halflen)
+               + ccd.support_box(-n0, p2, R2, size)),
+        lambda pt: ccd.clip_face_cap(pt, p1, R1, radius, halflen, m_ax, m_sgn, n0),
+        lambda pt: ccd.clip_face_box(pt, p2, R2, size, f_mask, f_sgn))
+    mask_ax, sgn_ax = ccd.cap_face(n_p, R1p)
+    bmask, bsgn = ccd.box_face(-n_p, R2p)
+    pos_p = ccd.witness(
+        n_p, depth_p, [0.5 * (xa + xb) + bias, w0[..., None, :]],
+        lambda pt: ccd.clip_face_cap(pt, p1p, R1p, rad1, hl1, mask_ax, sgn_ax, n_p),
+        lambda pt: ccd.clip_face_box(pt, p2p, R2p, size1, bmask, bsgn),
+        lambda pt: ccd.clip_into_cap(pt, p1p, R1p, rad1, hl1),
+        lambda pt: ccd.clip_into_box(pt, p2p, R2p, size1))
+    return ccd.manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p)
 
 
 # ---------------------------------------------------------------------------------
@@ -238,31 +520,68 @@ class Contacts:
         return self.feat[:, 4:7].transpose(1, 2)
 
 
-def collide(dm: DeviceModel, kin) -> Contacts:
-    """All contact slots from FK results (B envs), one batched primitive per
-    pair-type group."""
+def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2):
+    """One pair group's (dist (B, G, k), pos, normal (B, G, k, 3)), or
+    NotImplementedError for a pair type that is not ported."""
+    signs = dm.const('box_corner_signs', lambda: _BOX_CORNER_SIGNS)
+    up = dm.const('up', lambda: np.array([0.0, 0.0, 1.0]))   # normal of coincident centers
+    if key == (GEOM_PLANE, GEOM_SPHERE):
+        return _plane_sphere(p1, R1, p2, s2[:, 0])
+    if key == (GEOM_PLANE, GEOM_CAPSULE):
+        return _plane_capsule(p1, R1, p2, R2, s2[:, 0], s2[:, 1])
+    if key == (GEOM_PLANE, GEOM_BOX):
+        return _plane_box(p1, R1, p2, R2, s2, signs)
+    if key == (GEOM_BOX, GEOM_SPHERE):           # world box
+        return _box_sphere(p1, R1, s1, p2, s2[:, 0])
+    if key == (GEOM_BOX, GEOM_CAPSULE):          # world box: the CCD runs capsule first
+        d, p, n = _cap_box(p2, R2, s2[:, 0], s2[:, 1], p1, R1, s1, signs)
+        return d, p, -n
+    # robot-robot pairs, type1 <= type2, normal geom1 -> geom2
+    if key == (GEOM_SPHERE, GEOM_SPHERE):
+        return _sphere_sphere(p1, s1[:, 0], p2, s2[:, 0], up)
+    if key == (GEOM_SPHERE, GEOM_CAPSULE):
+        return _sphere_capsule(p1, s1[:, 0], p2, R2, s2[:, 0], s2[:, 1], up)
+    if key == (GEOM_SPHERE, GEOM_BOX):           # _box_sphere's normal is box -> sphere
+        d, p, n = _box_sphere(p2, R2, s2, p1, s1[:, 0])
+        return d, p, -n
+    if key == (GEOM_CAPSULE, GEOM_CAPSULE):
+        return _capsule_capsule(p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2[:, 0], s2[:, 1], up)
+    if key == (GEOM_CAPSULE, GEOM_BOX):
+        return _cap_box(p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2, signs)
+    if key == (GEOM_BOX, GEOM_BOX):
+        return _box_box(p1, R1, s1, p2, R2, s2, signs)
+    t1, t2 = key
+    raise NotImplementedError(
+        f'narrow phase for {_GEOM_NAMES.get(t1, t1)}-{_GEOM_NAMES.get(t2, t2)} pairs '
+        f'is not ported (ported: plane against sphere, capsule and box; world box '
+        f'against sphere and capsule; sphere, capsule and box pairs of the robot)')
+
+
+def group_args(dm: DeviceModel, kin):
+    """For each pair-type group in slot order, the arguments of its `_group`
+    call on FK results (B envs): the poses and sizes of its geoms 1 and 2
+    (the sizes are static, gathered once)."""
     m = dm.m
-    B = kin.geom_xpos.shape[0]
-    feats = []
     for t1, t2, g1, g2 in _pair_groups(m):
         key = (t1, t2)
         i1 = dm.const(('pair_g1', key), lambda: g1)
         i2 = dm.const(('pair_g2', key), lambda: g2)
-        p1, R1 = kin.geom_xpos[:, i1], kin.geom_xmat[:, i1]
-        p2 = kin.geom_xpos[:, i2]
-        if key == (GEOM_PLANE, GEOM_SPHERE):
-            d, p, n = _plane_sphere(p1, R1, p2, dm.geom_size[i2, 0])
-        elif key == (GEOM_SPHERE, GEOM_SPHERE):
-            up = dm.const('up', lambda: np.array([0.0, 0.0, 1.0]))
-            d, p, n = _sphere_sphere(p1, dm.geom_size[i1, 0], p2,
-                                     dm.geom_size[i2, 0], up)
-        else:
-            raise NotImplementedError(
-                f'narrow phase for {_GEOM_NAMES.get(t1, t1)}-'
-                f'{_GEOM_NAMES.get(t2, t2)} pairs is not ported '
-                f'(ported: plane-sphere, sphere-sphere)')
-        feats.append(torch.cat([d[:, None], p.transpose(1, 2),
-                                n.transpose(1, 2)], 1))      # (B, 7, G)
+        s1 = dm.const(('pair_size1', key), lambda: m.geom_size[g1])
+        s2 = dm.const(('pair_size2', key), lambda: m.geom_size[g2])
+        yield (dm, key, kin.geom_xpos[:, i1], kin.geom_xmat[:, i1], s1,
+               kin.geom_xpos[:, i2], kin.geom_xmat[:, i2], s2)
+
+
+def collide(dm: DeviceModel, kin) -> Contacts:
+    """All contact slots from FK results (B envs), one batched primitive per
+    pair-type group; a pair's slots are consecutive."""
+    B = kin.geom_xpos.shape[0]
+    feats = []
+    for args in group_args(dm, kin):
+        d, p, n = _group(*args)
+        S = d.shape[1] * d.shape[2]
+        feats.append(torch.cat([d.reshape(B, 1, S), p.reshape(B, S, 3).transpose(1, 2),
+                                n.reshape(B, S, 3).transpose(1, 2)], 1))   # (B, 7, S)
     if not feats:
         return Contacts(kin.geom_xpos.new_zeros(B, 7, 0))
     return Contacts(torch.cat(feats, 2))

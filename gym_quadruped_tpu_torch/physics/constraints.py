@@ -270,7 +270,10 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
         cs = lay.cone_slots
         feat = contacts.feat[:, :, dm.const('cone_slots', lambda: cs)]  # (B, 7, C_all)
         if max_cone is not None and max_cone < C_all:
-            sel = torch.topk(-feat[:, 0], max_cone, dim=1).indices     # (B, K)
+            # the max_cone nearest slots in ascending distance, the lower
+            # slot first among equal distances, as jax.lax.top_k orders them
+            # (torch.topk promises no order among ties)
+            sel = torch.sort(feat[:, 0], dim=1, stable=True).indices[:, :max_cone]
         else:
             sel = torch.arange(C_all, device=qpos.device).expand(B, C_all)
         K_ = sel.shape[1]

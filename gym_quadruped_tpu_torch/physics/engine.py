@@ -65,7 +65,8 @@ def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
             solver_iterations: int = DEFAULT_SOLVER_ITERS,
             max_contacts: int = MAX_CONE_CONTACTS) -> Forward:
     """mj_forward for B envs: qpos (B, nq), qvel (B, nv), ctrl (B, nu).
-    Its stages are named ranges for torch.profiler: smooth, contacts, newton."""
+    Its stages are named ranges for torch.profiler: smooth, contacts (itself
+    narrow_phase, then assembly), newton."""
     with record_function('smooth'):
         kin = fk(dm, qpos)
         cdof = _cdof(dm, kin)
@@ -76,8 +77,10 @@ def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
         qfrc_smooth = passive + act - bias
         qacc_smooth = spd_solve_batched(M, qfrc_smooth)
     with record_function('contacts'):
-        contacts = collide(dm, kin)
-        efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, max_cone=max_contacts)
+        with record_function('narrow_phase'):
+            contacts = collide(dm, kin)
+        with record_function('assembly'):
+            efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, max_cone=max_contacts)
     with record_function('newton'):   # one launch of the fused kernel on the card
         qacc, f_simple, f_cone, qfrc_constraint = newton_fused.solve_batched(
             M, qacc_smooth, efc, warmstart=warmstart, iterations=solver_iterations)

@@ -56,11 +56,11 @@ def test_kernel_raises_on_f64(card):
         spd.spd_solve_batched(A, torch.ones(4, 18, dtype=torch.float64, device=card))
 
 
-def _soft_states(card, B, limits=False):
+def _soft_states(card, B, limits=False, robot='spot'):
     """Soft contact states, which f32 Newton solves to convergence: the
     keyframe lowered up to 5 mm, qvel 0, small torques; with `limits`, the
     first limited joint (a hip) of every fourth env 0.01 rad past its range."""
-    dm = load_model('spot', 'flat', device=card)
+    dm = load_model(robot, 'flat', device=card)
     m = dm.m
     rng = np.random.RandomState(B)
     qpos = np.tile(m.key_qpos[0], (B, 1))
@@ -75,14 +75,14 @@ def _soft_states(card, B, limits=False):
     return fwd.M, fwd.qacc_smooth, fwd.efc
 
 
-def _check_newton(M, a_smooth, efc, form):
+def _check_newton(M, a_smooth, efc, form, iterations=10, envs_bar=0.02):
     before = nf.launches
     it = torch.zeros(a_smooth.shape[0], dtype=torch.int32, device=a_smooth.device)
-    got = getattr(nf, form)(M, a_smooth, efc, iterations_out=it)
+    got = getattr(nf, form)(M, a_smooth, efc, iterations=iterations, iterations_out=it)
     torch.cuda.synchronize()
     assert nf.launches == before + 1
     it_ref = torch.zeros_like(it)
-    ref = solver.solve(M, a_smooth, efc, iterations_out=it_ref,
+    ref = solver.solve(M, a_smooth, efc, iterations=iterations, iterations_out=it_ref,
                        _tol=0.0 if form == 'solve_batched_bt' else None)
     # the plain version's own f32 rounding differs: 1e-4 of 1 + max|ref|
     for g, r in zip(got, ref):
@@ -91,7 +91,7 @@ def _check_newton(M, a_smooth, efc, form):
             assert err < 1e-4, err
     # f32 rounding (~3e-7 of 1 + max|qacc|) is the order of the converged step
     # (tol 1e-6): an env near convergence may stop one iteration apart
-    assert int((it != it_ref).sum()) <= 0.02 * it.numel()
+    assert int((it != it_ref).sum()) <= envs_bar * it.numel()
     assert abs(it.float().mean() - it_ref.float().mean()).item() <= 0.01
     # rows compacted away get exact zeros
     assert bool((got[1][~efc.active] == 0).all() and (got[2][~efc.con_active] == 0).all())
@@ -162,22 +162,44 @@ def test_newton_kernel_any_size_and_dense_rows(card, form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_matches_plain_go2(card, form):
+    # go2's shapes: ns 24, C 32 culled from 1,180 cone slots, condim 3 and 6.
+    # Its soft states need up to 15 iterations from a_smooth (f32 and f64), so
+    # both solves get a cap of 30 to converge; more envs then stop one
+    # iteration apart than on spot/flat: the eager f32 and f64 solves
+    # themselves do in 3.6% of the envs (chip_smoke.py phase 10)
+    M, a_smooth, efc = _soft_states(card, 4097, robot='go2')
+    assert efc.con_J.shape[1] == 32
+    dims = efc.cone_dim_mask.sum(-1)[efc.con_active]
+    assert bool((dims == 3).any()) and bool((dims == 6).any())
+    _check_newton(M, a_smooth, efc, form, iterations=30, envs_bar=0.05)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_residency_go2(card):
+    # shared memory is sized by C: at C = 32 a block of 2 envs takes ~61 KB
+    blocks, envs, smem = nf.occupancy(18, 24, 32)
+    assert blocks * envs >= 6, (blocks, envs, smem)
+
+
+@pytest.mark.cuda
 def test_newton_kernel_residency(card):
     # 16 envs per SM at the main path's sizes (nv 18, ns 24, C 10)
     blocks, envs, smem = nf.occupancy(18, 24, 10)
     assert blocks * envs >= 16, (blocks, envs, smem)
 
 
-@pytest.mark.cuda
-def test_step_on_card_matches_cpu_f64(card):
+def _card_against_cpu(card, robot):
     B, T = 64, 20
-    dm = load_model('spot', 'flat', device=card)
-    dm64 = load_model('spot', 'flat', device='cpu', dtype=torch.float64)
+    dm = load_model(robot, 'flat', device=card)
+    dm64 = load_model(robot, 'flat', device='cpu', dtype=torch.float64)
+    nv = dm.m.nv
     ctrls = np.random.RandomState(0).uniform(-2, 2, (T, B, dm.m.nu))
     qpos = np.tile(dm.m.key_qpos[0], (B, 1))
     q, v, w = (torch.as_tensor(x, dtype=torch.float32, device=card)
-               for x in (qpos, np.zeros((B, 18)), np.zeros((B, 18))))
-    q64, v64, w64 = (torch.as_tensor(x) for x in (qpos, np.zeros((B, 18)), np.zeros((B, 18))))
+               for x in (qpos, np.zeros((B, nv)), np.zeros((B, nv))))
+    q64, v64, w64 = (torch.as_tensor(x) for x in (qpos, np.zeros((B, nv)), np.zeros((B, nv))))
     spd.launches = nf.launches = 0
     for t in range(T):
         q, v, f = engine.step_batched(dm, q, v, torch.as_tensor(
@@ -194,3 +216,13 @@ def test_step_on_card_matches_cpu_f64(card):
     # f32 against f64 over 20 steps of 2 ms: far inside the 1e-3 qpos bar
     err = (q.double().cpu() - q64).abs().max().item()
     assert err < 1e-3, err
+
+
+@pytest.mark.cuda
+def test_step_on_card_matches_cpu_f64(card):
+    _card_against_cpu(card, 'spot')
+
+
+@pytest.mark.cuda
+def test_step_on_card_matches_cpu_f64_go2(card):
+    _card_against_cpu(card, 'go2')

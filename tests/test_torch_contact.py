@@ -121,12 +121,13 @@ def test_top_k_cull_matches(spot):
 
 def test_unported_branches_raise(spot):
     jm, dm = spot
-    go2 = jload('go2', 'flat')
-    dgo2 = to_device(from_arrays({f.name: getattr(go2, f.name)
-                                  for f in dataclasses.fields(go2)}), 'cpu', torch.float64)
-    q = torch.as_tensor(go2.key_qpos[:1])
-    with pytest.raises(NotImplementedError, match='plane-capsule'):
-        pcol.collide(dgo2, pkin.fk(dgo2, q))
+    # go1/flat has cylinder feet: its plane-cylinder group is not ported
+    go1 = jload('go1', 'flat')
+    dgo1 = to_device(from_arrays({f.name: getattr(go1, f.name)
+                                  for f in dataclasses.fields(go1)}), 'cpu', torch.float64)
+    q = torch.as_tensor(go1.key_qpos[:1])
+    with pytest.raises(NotImplementedError, match='plane-cylinder'):
+        pcol.collide(dgo1, pkin.fk(dgo1, q))
     pyr = to_device(from_arrays({**{f.name: getattr(jm, f.name)
                                     for f in dataclasses.fields(jm)}, 'cone': 0}),
                     'cpu', torch.float64)

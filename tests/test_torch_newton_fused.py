@@ -1,5 +1,5 @@
 """The port's fused Newton solve wrapper against the JAX package's solvers,
-on spot/flat contact states in f64.
+on spot/flat and go2/flat contact states in f64.
 
 * `newton_fused.solve_batched` (per-env stopping, the counterpart of the
   fused gen-1 kernel) against the reference's vmapped `solve`, from a_smooth
@@ -50,8 +50,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope='module')
-def rows():
+def _spot_rows():
     """M, a_smooth and the constraint rows of B spot/flat contact states, as
     the reference's batched Efc and as the port's tensors."""
     jm = jload('spot', 'flat')
@@ -68,15 +67,51 @@ def rows():
     return jm, M, a_smooth, jefc, efc
 
 
+def _go2_rows():
+    """The same for B go2/flat contact states, at go2's shapes (ns 24, C 32
+    culled from 1,180 cone slots, condim 3 and 6 blocks both active). The
+    rows come from the port's f64 forward (held against the reference's in
+    tests/test_torch_step_go2.py) and go to both solvers."""
+    jm = jload('go2', 'flat')
+    dm = pload('go2', 'flat', device='cpu', dtype=torch.float64)
+    qpos, qvel, ctrl = _contact_state(jm, B, seed=41)
+    fwd = peng.forward(dm, *(torch.as_tensor(x) for x in (qpos, qvel, ctrl)))
+    efc = fwd.efc
+    assert efc.J.shape[1:] == (24, 18) and efc.con_J.shape[1] == 32
+    dims = efc.cone_dim_mask.sum(-1)[efc.con_active]
+    assert bool((dims == 3).any()) and bool((dims == 6).any())
+    jefc = jcon.Efc(**{k.name: getattr(efc, k.name).numpy() for k in dataclasses.fields(pcon.Efc)})
+    return jm, fwd.M.numpy(), fwd.qacc_smooth.numpy(), jefc, efc
+
+
+@pytest.fixture(scope='module')
+def rows_of():
+    """robot -> (jm, M, a_smooth, reference Efc, port Efc), made once."""
+    made = {}
+
+    def get(robot):
+        if robot not in made:
+            made[robot] = {'spot': _spot_rows, 'go2': _go2_rows}[robot]()
+        return made[robot]
+    return get
+
+
+@pytest.fixture(scope='module')
+def rows(rows_of):
+    return rows_of('spot')
+
+
 def _close(got, ref, name):
     ref = np.asarray(ref)
     scale = 1 + np.abs(ref).max(initial=0)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-9 * scale, err_msg=name)
 
 
-@pytest.mark.parametrize('warm', [False, True])
-def test_solve_batched_matches_vmapped_solve(rows, warm):
-    jm, M, a_smooth, jefc, efc = rows
+@pytest.mark.parametrize('robot,warm', [
+    pytest.param('spot', False, id='False'), pytest.param('spot', True, id='True'),
+    pytest.param('go2', False, id='go2-False'), pytest.param('go2', True, id='go2-True')])
+def test_solve_batched_matches_vmapped_solve(rows_of, robot, warm):
+    jm, M, a_smooth, jefc, efc = rows_of(robot)
     lay = jcon.constraint_layout(jm)
     w = np.random.RandomState(42).randn(*a_smooth.shape) if warm else a_smooth
     ref = jax.jit(jax.vmap(lambda M_, a, e, w_: jsol.solve(jm, lay, M_, a, e, warmstart=w_)))(
@@ -87,13 +122,20 @@ def test_solve_batched_matches_vmapped_solve(rows, warm):
         _close(g, r, name)
 
 
-def test_solve_batched_bt_matches_reference_solve_batched(rows):
-    jm, M, a_smooth, jefc, efc = rows
+def _check_bt(jm, M, a_smooth, jefc, efc):
     lay = jcon.constraint_layout(jm)
     ref = jax.jit(lambda M_, a, e: jsol.solve_batched(jm, lay, M_, a, e))(M, a_smooth, jefc)
     got = nf.solve_batched_bt(torch.as_tensor(M), torch.as_tensor(a_smooth), efc)
     for g, r, name in zip(got, ref, ('qacc', 'f_simple', 'f_cone', 'qfrc')):
         _close(g, r, name)
+
+
+def test_solve_batched_bt_matches_reference_solve_batched(rows):
+    _check_bt(*rows)
+
+
+def test_solve_batched_bt_matches_reference_solve_batched_go2(rows_of):
+    _check_bt(*rows_of('go2'))
 
 
 def test_cpu_routes_to_plain_and_counts_no_launch(rows):
