@@ -49,7 +49,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   9. a device profile of 3 steps: busy share, kernel launches per step, host
      and device time of the step's stages (smooth, contacts and within it
      narrow_phase and assembly, newton, euler) and of the port's two
-     kernels, top kernels;
+     kernels, top kernels; then each pair group of the narrow phase apart
+     (time on the stream and on the host, tensor operations);
  10-14. go2/flat, the reference's headline configuration (1,180 elliptic
      cone slots of condim 3 and 6, culled to 32): the Newton kernel's
      residency at go2's sizes (nv 18, ns 24, C 32); on seeded soft go2/flat
@@ -57,15 +58,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the eager f32 solve and the eager f64 solve at caps of 10 (the step's,
      where most envs stop unconverged) and 30, the kernel held to the eager
      f32 solve within a bar below the f32-f64 gap, then phase 5 at the cap
-     of 30; then phases 6-9 on
-     go2/flat: 200 steps at B=4096 (steps/s, exactly 2 SPD and 1 Newton
-     launches per step, active rows and blocks at the last step, peak device
-     memory), card against CPU, Newton timings, bound and residency on the
-     last step's inputs, and the profile, with each pair group of the
-     narrow phase apart (time on the stream and on the host, tensor
-     operations).
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     of 30; then phases 6-9 on go2/flat: 200 steps at B=4096 (steps/s,
+     exactly 2 SPD and 1 Newton launches per step, active rows and blocks
+     at the last step, peak device memory), card against CPU, Newton
+     timings, bound and residency on the last step's inputs, and the
+     profile with the narrow phase by group;
+ 15-19. the same five phases on aliengo/flat (328 pyramidal condim-3 slots
+     culled to 32: nv 18, ns 148, C 0). Phase 15 holds the kernel against
+     the eager f32 and f64 solves at the step's cap of 10 on seeded soft
+     states (the keyframe lowered by its clearance, then the feet U(0, 5)
+     mm into the floor) and on states pressed 3 cm further (active
+     pyramidal rows past row 64, the kernel's third word of active rows),
+     then runs phase 5's checks with the pressed states among its cases.
+     The CPU comparison starts at step 100 alone: the feet start 12.7 mm
+     above the floor and first touch it after ~25 steps, so steps 0-20
+     hold no contact;
+ 20-24. the same on b2/flat (998 slots, cylinder hips: the plane-,
+     sphere- and box-cylinder groups among the narrow phase's; ns 140),
+     phase 20 on the soft states alone, the CPU comparison from step 100
+     (the feet touch after ~30 steps);
+ 25-29. the same on hyqreal2/random_boxes (6,173 slots, 400 world boxes;
+     ns 158), BASELINE cfg4's scene: phase 25 on the soft states alone, 20
+     steps at B=4096, 4 envs stepped 20 times on the CPU from step 0.
+Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
+solve on the last step's inputs, on the envs both converged.
+Next to each time, rate and memory size the line gives the card's name
+and power limit. Then come the seconds each phase took, the kernels' JSON
+record on the line before the last, and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -87,14 +106,13 @@ from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
-from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
+from gym_quadruped_tpu_torch.physics.constraints import constraint_layout, pyramidal_rows
 
 SEED = 0
 BATCH = 4096
 STEPS = 200
 N_CPU_ENVS = 16
 CPU_STEPS = 20
-CPU_WINDOWS = (0, 100)     # card states the CPU comparison starts from
 # H100 SXM published peaks: HBM bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -121,11 +139,48 @@ ITERATION_MEAN_BAR = 0.01
 GO2_CAP10_BAR = 5e-2
 GO2_AGREEMENT_ITERATIONS = 30
 GO2_ITERATION_ENVS_BAR = 0.05
+# The pyramidal models' agreement states (phases 15, 20 and 25): soft, and
+# for aliengo pressed 3 cm further into the floor. At the step's cap of 10
+# all but at most 20 of 4,096 envs converge (3-6 iterations per env on
+# average), and rounding alone moves the eager solve by 9.3e-08-1.3e-07 of 1 +
+# max|qacc| on aliengo's and b2's states, 9.9e-08-7.1e-07 on hyqreal2's (f32
+# against f64 at the f32 tolerance), where the kernel ends 1.40e-07-1.54e-07
+# (aliengo), 9.8e-08 (b2) and 9.8e-08-6.9e-07 (hyqreal2) from the eager f32
+# solve (NVIDIA H100 80GB HBM3, 700 W, PERF.md). The kernel is held within
+# 1e-6 of the eager f32 solve on every env: the f32 tolerance on the
+# converged step.
+PRESS = 0.03
+PYR_CAP10_BAR = 1e-6
 LS_ITERATIONS = 6
+
+
+def newton_sizes(m):
+    """(nv, ns, C) of the Newton kernel's inputs on model m's step: the
+    friction-loss and limit rows, the pyramidal rows of the culled slots,
+    and the culled cone blocks."""
+    lay = constraint_layout(m)
+    K = engine.MAX_CONE_CONTACTS
+    first, per_slot, kept = pyramidal_rows(lay, K)
+    return m.nv, first + per_slot * kept, min(len(lay.cone_slots), K)
+
+
+T_START = time.perf_counter()
+LOGGED = {}   # phase: the time of its last line
 
 
 def log(phase, msg):
     print(f'[{phase}] {msg}', flush=True)
+    LOGGED[phase] = time.perf_counter()
+
+
+def phase_seconds():
+    """The seconds each phase took, from the last line of the phase before
+    to its own last line."""
+    out, t0 = {}, T_START
+    for phase, t in LOGGED.items():
+        out[phase] = round(t - t0, 1)
+        t0 = t
+    return out
 
 
 def random_spd(gen, B, n):
@@ -163,14 +218,23 @@ def bound(n_bytes, n_flop):
     return max(t_bytes, t_flop) * 1e3, 'bytes' if t_bytes >= t_flop else 'operations'
 
 
-def soft_state(dm, gen, B, limits=False):
+def clearance(dm):
+    """How far the keyframe's nearest contact slot is from touching (0 when
+    it touches): aliengo's feet stand 12.7 mm above the floor, b2's 17.9 mm,
+    hyqreal2's 6.1 mm; spot's and go2's press into it."""
+    kin = kinematics.fk(dm, torch.as_tensor(dm.m.key_qpos[:1], dtype=dm.dtype, device=dm.device))
+    return max(0.0, collision.collide(dm, kin).dist.min().item())
+
+
+def soft_state(dm, gen, B, limits=False, press=0.0):
     """M, a_smooth and the rows of B seeded flat-floor states: the keyframe
-    lowered U(0, 5) mm into the floor, qvel 0, U(-0.5, 0.5) torques. With
-    `limits`, the first limited joint (a hip) of about a quarter of the envs
-    sits 0.01 rad past the top of its range."""
+    lowered by its clearance, then `press` and U(0, 5) mm more into the
+    floor, qvel 0, U(-0.5, 0.5) torques. With `limits`, the first limited
+    joint (a hip) of about a quarter of the envs sits 0.01 rad past the top
+    of its range."""
     m = dm.m
     qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device='cuda').repeat(B, 1)
-    qpos[:, 2] -= 0.005 * torch.rand(B, generator=gen, device='cuda')
+    qpos[:, 2] -= clearance(dm) + press + 0.005 * torch.rand(B, generator=gen, device='cuda')
     ctrl = torch.rand(B, m.nu, generator=gen, device='cuda') - 0.5
     if limits:
         j = constraint_layout(m).lim_jnts[0]
@@ -183,7 +247,8 @@ def soft_state(dm, gen, B, limits=False):
 def without_rows(efc):
     """The same Efc with every simple row and cone block sliced away."""
     return dataclasses.replace(efc, **{f.name: getattr(efc, f.name)[:, :0].contiguous()
-                                       for f in dataclasses.fields(efc)})
+                                       for f in dataclasses.fields(efc)
+                                       if getattr(efc, f.name) is not None})
 
 
 def newton_flop(nv, ns, C, env_iterations, B, ls=LS_ITERATIONS):
@@ -248,10 +313,11 @@ def newton_needed_work(M, efc, iterations, ls=LS_ITERATIONS):
     return flop, 4 * floats + B * (ns + C)
 
 
-def newton_agreement(dm, phase=5, iterations=10, envs_bar=ITERATION_ENVS_BAR):
-    """Phases 5 and 10: the fused Newton kernel against the eager
-    `solver.solve` on the card, both with a cap of `iterations`. Returns
-    (the max abs qacc difference of the soft B=4096 per-env case from
+def newton_agreement(dm, phase=5, iterations=10, envs_bar=ITERATION_ENVS_BAR, press=None):
+    """Phases 5, 10 and 15: the fused Newton kernel against the eager
+    `solver.solve` on the card, both with a cap of `iterations`; with
+    `press`, also on soft states pressed that much further into the floor.
+    Returns (the max abs qacc difference of the soft B=4096 per-env case from
     a_smooth, the bars each case failed, the set of cone dimensions among
     the active blocks of the soft states)."""
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -266,11 +332,15 @@ def newton_agreement(dm, phase=5, iterations=10, envs_bar=ITERATION_ENVS_BAR):
         M, a_s, efc = soft_state(dm, gen, B, limits=True)
         cases = (('soft', *soft), ('active limits', M, a_s, efc),
                  ('ns = C = 0', M, a_s, without_rows(efc)))
+        if press is not None:
+            cases += ((f'pressed {press * 100:g} cm', *soft_state(dm, gen, B, press=press)),)
         for case, M, a_s, efc in cases:
+            rows = efc.active.nonzero()[:, 1]
             log(phase, f'{dm.m.robot}/{dm.m.scene} B={B} {case}: ns={efc.J.shape[1]}, '
                        f'C={efc.con_J.shape[1]}, active simple rows per env '
-                       f'{efc.active.sum(1).float().mean().item():.3f}, active cone blocks per '
-                       f'env {efc.con_active.sum(1).float().mean().item():.3f}')
+                       f'{efc.active.sum(1).float().mean().item():.3f} (the last active one '
+                       f'row {int(rows.max()) if rows.numel() else None}), active cone blocks '
+                       f'per env {efc.con_active.sum(1).float().mean().item():.3f}')
             for form, fn, tol in forms:
                 for start, warm in (('a_smooth', None), ('zeros', torch.zeros_like(a_s))):
                     it = torch.zeros(B, dtype=torch.int32, device='cuda')
@@ -315,25 +385,26 @@ def as_f64(efc):
     """The same Efc with every float tensor in float64."""
     return dataclasses.replace(efc, **{
         f.name: getattr(efc, f.name).double() for f in dataclasses.fields(efc)
-        if getattr(efc, f.name).is_floating_point()})
+        if getattr(efc, f.name) is not None and getattr(efc, f.name).is_floating_point()})
 
 
-def go2_agreement(go2, phase=10):
-    """Phase 10: the fused Newton kernel against the eager solve on seeded
-    soft go2/flat states. At each cap, the step's 10 and 30, and in both
-    forms, three solves of the same B=4096 inputs: the kernel, the eager
-    f32 solve and the eager f64 solve at the f32 tolerance. The f32-f64
-    gap is what rounding alone does to the eager solve; the kernel is held
-    to the eager f32 solve within a bar below it (GO2_CAP10_BAR). Then phase 5 on go2 at the cap of 30. Returns (the
-    max abs qacc difference of phase 5's soft per-env case, the bars
-    failed)."""
-    M, a_s, efc = soft_state(go2, torch.Generator(device='cuda').manual_seed(SEED), BATCH)
+def three_solves(dm, M, a_s, efc, label, phase, caps, cap10_bar):
+    """At each cap and in both forms, three solves of the same inputs: the
+    kernel, the eager f32 solve and the eager f64 solve at the f32
+    tolerance. The f32-f64 gap is what rounding alone does to the eager
+    solve; the kernel is held to the eager f32 solve within NEWTON_BAR on
+    the envs both f32 solves converged and, at the step's cap of 10, within
+    `cap10_bar` on every env and to ITERATION_ENVS_BAR. Returns (the bars
+    failed, the max abs qacc difference of the kernel's first solve from
+    the eager f32 one)."""
+    B = a_s.shape[0]
     M64, a64, efc64 = M.double(), a_s.double(), as_f64(efc)
     failures = []
-    for cap in (10, GO2_AGREEMENT_ITERATIONS):
+    abs_err = None
+    for cap in caps:
         for form, fn, tol in (('solve_batched', nf.solve_batched, solver._TOL[torch.float32]),
                               ('solve_batched_bt', nf.solve_batched_bt, 0.0)):
-            it_k, it_32, it_64 = (torch.zeros(BATCH, dtype=torch.int32, device='cuda')
+            it_k, it_32, it_64 = (torch.zeros(B, dtype=torch.int32, device='cuda')
                                   for _ in range(3))
             got = fn(M, a_s, efc, iterations=cap, iterations_out=it_k)
             ref = solver.solve(M, a_s, efc, iterations=cap, iterations_out=it_32, _tol=tol)
@@ -342,10 +413,12 @@ def go2_agreement(go2, phase=10):
                 ref64 = solver.solve(M64, a64, efc64, iterations=cap, iterations_out=it_64,
                                      _tol=tol)
             gap_k, gap_32 = rel_err(got[0], ref[0]), rel_err(ref[0], ref64[0])
+            if abs_err is None:
+                abs_err = (got[0] - ref[0]).abs().max().item()
             n_k, n_32 = int((it_k != it_32).sum()), int((it_32 != it_64).sum())
             done = (it_k < cap) & (it_32 < cap)        # envs both f32 solves converged
             gap_done = rel_err(got[0][done], ref[0][done]) if bool(done.any()) else 0.0
-            log(phase, f'go2/flat soft states B={BATCH}, cap {cap}, {form}: qacc kernel vs '
+            log(phase, f'{label} B={B}, cap {cap}, {form}: qacc kernel vs '
                        f'eager f32 {gap_k:.3e}, eager f32 vs eager f64 {gap_32:.3e}, kernel vs '
                        f'eager f64 {rel_err(got[0], ref64[0]):.3e} (of 1 + max|qacc|), kernel vs '
                        f'eager f32 on the {int(done.sum())} envs both converged {gap_done:.3e}; envs '
@@ -353,17 +426,67 @@ def go2_agreement(go2, phase=10):
                        f'mean iterations kernel {it_k.float().mean().item():.3f}, f32 '
                        f'{it_32.float().mean().item():.3f}, f64 {it_64.float().mean().item():.3f}; '
                        f'envs at the cap (f32) {int((it_32 == cap).sum())}')
-            where = f'go2 B={BATCH} cap {cap} {form}'
+            where = f'{label} B={B} cap {cap} {form}'
             if not gap_done < NEWTON_BAR:
                 failures.append(f'Newton kernel disagrees on converged envs: {where}')
-            if cap == 10 and not (gap_k < GO2_CAP10_BAR and n_k <= ITERATION_ENVS_BAR * BATCH):
+            if cap == 10 and not (gap_k < cap10_bar and n_k <= ITERATION_ENVS_BAR * B):
                 failures.append(f'Newton kernel off by {gap_k} in qacc, {n_k} envs in '
                                 f'iterations at the cap of 10: {where}')
+    return failures, abs_err
+
+
+def spot_agreement(dm, phase=5):
+    """Phase 5 on spot/flat. Returns (the max abs qacc difference of its
+    soft per-env case, the bars failed)."""
+    return newton_agreement(dm, phase)[:2]
+
+
+def go2_agreement(go2, phase=10):
+    """Phase 10: the fused Newton kernel against the eager solve on seeded
+    soft go2/flat states: `three_solves` at the caps 10 and 30 (the kernel
+    within GO2_CAP10_BAR of the eager f32 solve at 10), then phase 5 on go2
+    at the cap of 30. Returns (the max abs qacc difference of phase 5's soft
+    per-env case, the bars failed)."""
+    M, a_s, efc = soft_state(go2, torch.Generator(device='cuda').manual_seed(SEED), BATCH)
+    failures, _ = three_solves(go2, M, a_s, efc, 'go2/flat soft states', phase,
+                               (10, GO2_AGREEMENT_ITERATIONS), GO2_CAP10_BAR)
     abs_err, more, dims = newton_agreement(go2, phase, GO2_AGREEMENT_ITERATIONS,
                                            GO2_ITERATION_ENVS_BAR)
     failures += more
     if not {3, 6} <= dims:
         failures.append(f'go2 soft states without active condim-3 and condim-6 blocks: {dims}')
+    return abs_err, failures
+
+
+def pyramidal_agreement(dm, phase, presses=(0.0,), phase5=False):
+    """Phases 15, 20 and 25: the fused Newton kernel against the eager solve
+    on seeded states of a model with pyramidal contact rows, soft (the
+    keyframe lowered by its clearance, then U(0, 5) mm into the floor) and
+    pressed each further press of `presses` (aliengo's 3 cm: the body's
+    boxes touch too and active pyramidal rows reach past row 64, the
+    kernel's third ballot word): `three_solves` at the step's cap of 10 (the
+    kernel within PYR_CAP10_BAR of the eager f32 solve). With `phase5`,
+    then phase 5's checks with the last pressed states among its cases.
+    Returns (the max abs qacc difference of phase 5's soft per-env case, or
+    of the first `three_solves`, the bars failed)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    failures, abs_err = [], None
+    for press in presses:
+        M, a_s, efc = soft_state(dm, gen, BATCH, press=press)
+        rows = efc.active.nonzero()[:, 1]
+        label = f'{dm.m.robot}/{dm.m.scene} ' + (f'states pressed {press * 100:g} cm' if press
+                                                 else 'soft states')
+        log(phase, f'{label}: active simple rows per env '
+                   f'{efc.active.sum(1).float().mean().item():.3f}, the last active one row '
+                   f'{int(rows.max())} of {efc.J.shape[1]}')
+        more, err = three_solves(dm, M, a_s, efc, label, phase, (10,), PYR_CAP10_BAR)
+        failures += more
+        abs_err = err if abs_err is None else abs_err
+        if press and not int(rows.max()) >= 64:
+            failures.append(f'{label}: no active row past row 64')
+    if phase5:
+        abs_err, more, _ = newton_agreement(dm, phase, press=presses[-1])
+        failures += more
     return abs_err, failures
 
 
@@ -394,25 +517,37 @@ def activation(efc, C_all):
     return torch.cat([efc.active, cones.scatter_(1, efc.cone_sel, efc.con_active)], 1)
 
 
-def main_path(dm, phase):
-    """Phases 6 and 11: B=4096 f32 steps of `step_batched` from the keyframe
-    with seeded U(-2, 2) torques and the qacc warm start. Every launch count
-    is set to 0 just before the run and read just after it. Checks: every
-    state finite, contacts active, exactly 2 SPD and 1 Newton launch per
-    step. Keeps, for the first N_CPU_ENVS envs and each step of the CPU
-    windows, the step's input state and its constraint activation."""
+def active_contacts(efc, lay):
+    """Active contact slots: cone blocks, plus pyramidal rows over the rows
+    each slot has."""
+    n = efc.con_active.sum()
+    first, per_slot, _ = pyramidal_rows(lay)
+    if per_slot:
+        n = n + efc.active[:, first:].sum() // per_slot
+    return n
+
+
+def main_path(dm, phase, steps, windows, n_cpu):
+    """Phases 6, 11, 16, 21 and 26: B=4096 f32 steps of `step_batched` from
+    the keyframe with seeded U(-2, 2) torques and the qacc warm start. Every
+    launch count is set to 0 just before the run and read just after it.
+    Checks: every state finite, contacts active, exactly 2 SPD and 1 Newton
+    launch per step. Keeps, for the first n_cpu envs and each step of the
+    CPU windows (CPU_STEPS from each start in `windows`), the step's input
+    state and its constraint activation."""
     m = dm.m
     name = f'{m.robot}/{m.scene}'
+    lay = constraint_layout(m)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    ctrls = torch.rand(STEPS, BATCH, m.nu, generator=gen, device='cuda') * 4.0 - 2.0
+    ctrls = torch.rand(steps, BATCH, m.nu, generator=gen, device='cuda') * 4.0 - 2.0
     qpos = torch.as_tensor(np.tile(m.key_qpos[0], (BATCH, 1)), dtype=torch.float32,
                            device='cuda')
     qvel = torch.zeros(BATCH, m.nv, device='cuda')
     warm = torch.zeros(BATCH, m.nv, device='cuda')
     finite = torch.ones((), dtype=torch.bool, device='cuda')
     n_active = torch.zeros((), dtype=torch.int64, device='cuda')
-    C_all = len(constraint_layout(m).cone_slots)
-    window = {t for t0 in CPU_WINDOWS for t in range(t0, t0 + CPU_STEPS + 1)}
+    C_all = len(lay.cone_slots)
+    window = {t for t0 in windows for t in range(t0, t0 + CPU_STEPS + 1)}
     states, acts = {}, {}
     per_step = []
     torch.cuda.synchronize()
@@ -420,34 +555,37 @@ def main_path(dm, phase):
     spd.launches = 0
     nf.launches = 0
     t0 = time.perf_counter()
-    for t in range(STEPS):
+    for t in range(steps):
         if t in window:
-            states[t] = (qpos[:N_CPU_ENVS].clone(), qvel[:N_CPU_ENVS].clone(),
-                         warm[:N_CPU_ENVS].clone())
+            states[t] = (qpos[:n_cpu].clone(), qvel[:n_cpu].clone(), warm[:n_cpu].clone())
         before = spd.launches, nf.launches
         warm_in = warm
         qpos, qvel, fwd = engine.step_batched(dm, qpos, qvel, ctrls[t], warmstart=warm)
         warm = fwd.qacc
         if t in window:
-            acts[t] = activation(fwd.efc, C_all)[:N_CPU_ENVS]
+            acts[t] = activation(fwd.efc, C_all)[:n_cpu]
         per_step.append((spd.launches - before[0], nf.launches - before[1]))
         finite &= torch.isfinite(qpos).all() & torch.isfinite(qvel).all()
-        n_active += fwd.efc.con_active.sum()
+        n_active += active_contacts(fwd.efc, lay)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if steps in window:
+        states[steps] = (qpos[:n_cpu].clone(), qvel[:n_cpu].clone(), warm[:n_cpu].clone())
     launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
     efc = fwd.efc
-    log(phase, f'{name} B={BATCH} f32: {STEPS} steps in {wall:.3f} s = {STEPS / wall:.2f} '
-               f'steps/s = {BATCH * STEPS / wall:.1f} env-steps/s on {smi()}')
+    log(phase, f'{name} B={BATCH} f32: {steps} steps in {wall:.3f} s = {steps / wall:.2f} '
+               f'steps/s = {BATCH * steps / wall:.1f} env-steps/s on {smi()}')
     log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
                f'{launches["newton_fused"]} (per step {sorted(set(per_step))}); active contact '
                f'slots summed over steps {int(n_active)}; final mean base height '
                f'{qpos[:, 2].mean().item():.4f}')
-    log(phase, f'last step: ns={efc.J.shape[1]}, C={efc.con_J.shape[1]} of '
-               f'{len(constraint_layout(m).cone_slots)} cone slots; active simple rows per env '
-               f'{efc.active.sum(1).float().mean().item():.3f}, active cone blocks per env '
-               f'{efc.con_active.sum(1).float().mean().item():.3f}; peak device memory '
-               f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+    per_env = lambda mask: mask.sum(1).float().mean().item()
+    first, _, _ = pyramidal_rows(lay)
+    log(phase, f'last step: ns={efc.J.shape[1]}, C={efc.con_J.shape[1]} of {C_all} cone '
+               f'slots; active simple rows per env {per_env(efc.active):.3f} (of which contact '
+               f'rows {per_env(efc.active[:, first:]):.3f}), active cone blocks '
+               f'per env {per_env(efc.con_active):.3f}; peak device memory '
+               f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {smi()}')
     if not bool(finite):
         raise AssertionError(f'a state of the {name} path is not finite')
     if int(n_active) == 0:
@@ -458,55 +596,67 @@ def main_path(dm, phase):
                              f'{name}, got {sorted(set(per_step))}')
     return {'ctrls': ctrls, 'states': states, 'acts': acts, 'launches': launches,
             'last': (fwd.M, fwd.qacc_smooth, efc, warm_in),   # the last step's Newton inputs
-            'state': (qpos, qvel, warm)}
+            'state': (qpos, qvel, warm), 'windows': windows, 'n_cpu': n_cpu}
 
 
-def card_against_cpu(robot, run, phase):
-    """Phases 7 and 12: 16 envs stepped 20 times in f64 on the CPU through
-    the same functions, from the card's states at steps 0 and 100; every
-    env's qpos after the 20 steps within 1e-3 of the card's f32 state. The
-    line also counts the envs whose set of active simple rows and cone slots
-    differed from the card's at some step (a row at its activation
-    threshold to rounding), which would explain a failure."""
+def card_against_cpu(dm, run, phase):
+    """Phases 7, 12, 17, 22 and 27: the run's first envs stepped CPU_STEPS
+    times in f64 on the CPU through the same functions, from the card's
+    states at each start of the run's windows; every env's qpos after the
+    steps within 1e-3 of the card's f32 state. The line also counts the
+    envs whose set of active simple rows and cone slots differed from the
+    card's at some step (a row at its activation threshold to rounding),
+    which would explain a failure."""
     torch.set_num_threads(1)   # tiny batched products: one thread is fastest
-    dm64 = load_model(robot, 'flat', device='cpu', dtype=torch.float64)
+    m = dm.m
+    dm64 = load_model(m.robot, m.scene, device='cpu', dtype=torch.float64)
     C_all = len(constraint_layout(dm64.m).cone_slots)
-    ctrls, states, acts = run['ctrls'], run['states'], run['acts']
-    for t0 in CPU_WINDOWS:
+    ctrls, states, acts, n = run['ctrls'], run['states'], run['acts'], run['n_cpu']
+    for t0 in run['windows']:
         q, v, w = (x.double().cpu() for x in states[t0])
-        switched = torch.zeros(N_CPU_ENVS, dtype=torch.bool)
+        switched = torch.zeros(n, dtype=torch.bool)
         for t in range(t0, t0 + CPU_STEPS):
-            q, v, f = engine.step_batched(dm64, q, v, ctrls[t, :N_CPU_ENVS].double().cpu(),
-                                          warmstart=w)
+            q, v, f = engine.step_batched(dm64, q, v, ctrls[t, :n].double().cpu(), warmstart=w)
             w = f.qacc
             switched |= (activation(f.efc, C_all) != acts[t].cpu()).any(1)
         err = (states[t0 + CPU_STEPS][0].double().cpu() - q).abs().max().item()
-        log(phase, f'{robot}/flat, {N_CPU_ENVS} envs, steps {t0}..{t0 + CPU_STEPS}: card f32 '
+        log(phase, f'{m.robot}/{m.scene}, {n} envs, steps {t0}..{t0 + CPU_STEPS}: card f32 '
                    f'vs CPU f64 max |qpos diff| {err:.3e}; envs where a row or slot switched '
                    f'on one side only {int(switched.sum())}')
         # f32 steps against f64 steps: the f32 Newton tolerance is 1e-6 of
         # |qacc| and 20 steps of 2 ms keep the drift far below the 1e-3 qpos
         # bar that the reference holds against MuJoCo
         if not err < 1e-3:
-            raise AssertionError(f'{robot}: card and CPU trajectories differ by {err}')
+            raise AssertionError(f'{m.robot}/{m.scene}: card and CPU trajectories differ by '
+                                 f'{err}')
 
 
 def newton_timing(last, phase):
-    """Phases 8 and 13: Newton timings on a main path's last step inputs, in
-    both forms: the fused kernel (through its C entry point, as in phase 4,
-    and through the wrapper), the eager `solver.solve` on the card and two
-    bounds from the iterations the kernel ran (dense; what these inputs
-    need, the one the kernels line reports)."""
+    """Phases 8, 13, 18, 23 and 28: Newton timings on a main path's last
+    step inputs, in both forms: the fused kernel (through its C entry
+    point, as in phase 4, and through the wrapper), the eager `solver.solve`
+    on the card and two bounds from the iterations the kernel ran (dense;
+    what these inputs need, the one the kernels line reports). The kernel
+    is held to the eager f32 solve within NEWTON_BAR on the envs both
+    converged at the step's cap of 10 (an env stopped at the cap is not
+    converged, and there the two f32 solves may end far apart: go2's)."""
     M, a_s, efc, w = last
     B, nv = a_s.shape
     ns, C = efc.J.shape[1], efc.con_J.shape[1]
+    cap = 10
     it = torch.zeros(B, dtype=torch.int32, device='cuda')
-    outs = nf.solve_batched(M, a_s, efc, warmstart=w, iterations_out=it)
+    outs = nf.solve_batched(M, a_s, efc, warmstart=w, iterations=cap, iterations_out=it)
     newton_c = nf._library(nv).gqt_newton_fused_f32
     outputs = tuple(torch.empty_like(x) for x in outs)
     tol = solver._TOL[torch.float32]
-    args = nf.kernel_args(M, a_s, efc, w, outputs, None, 10, LS_ITERATIONS, tol)
-    args_bt = nf.kernel_args(M, a_s, efc, w, outputs, None, 10, LS_ITERATIONS, 0.0)
+    args = nf.kernel_args(M, a_s, efc, w, outputs, None, cap, LS_ITERATIONS, tol)
+    args_bt = nf.kernel_args(M, a_s, efc, w, outputs, None, cap, LS_ITERATIONS, 0.0)
+    it_ref = torch.zeros_like(it)
+    ref = solver.solve(M, a_s, efc, warmstart=w, iterations=cap, iterations_out=it_ref)
+    done = (it < cap) & (it_ref < cap)
+    n_done = int(done.sum())
+    err_done = rel_err(outs[0][done], ref[0][done]) if n_done else float('nan')
+    rows = efc.active.nonzero()[:, 1]
     newton_ms = median_ms(lambda: newton_c(*args))
     newton_bt_ms = median_ms(lambda: newton_c(*args_bt))
     newton_wrapper_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w))
@@ -526,7 +676,14 @@ def newton_timing(last, phase):
                f'simple rows per env {efc.active.sum(1).float().mean().item():.3f}, active cone '
                f'blocks {efc.con_active.sum(1).float().mean().item():.3f}; residency {blocks} '
                f'blocks of {per_block} envs per SM, {smem} B of shared memory per block; no '
-               f'single PyTorch call computes a Newton contact solve')
+               f'single PyTorch call computes a Newton contact solve; the last active simple '
+               f'row {int(rows.max()) if rows.numel() else None}; qacc kernel vs eager f32 on '
+               f'the {n_done} envs both converged {err_done:.3e}, on every env '
+               f'{rel_err(outs[0], ref[0]):.3e} (of 1 + max|qacc|), envs whose iteration count '
+               f'differs {int((it != it_ref).sum())}; on {smi()}')
+    if not err_done < NEWTON_BAR:
+        raise AssertionError(f'Newton kernel off by {err_done} from the eager solve on the '
+                             f'{n_done} envs of the last main-path step both converged')
     log(phase, f'bound of what these inputs need (reported): {newton_bound_ms:.5f} ms '
                f'({newton_bound_by}: {act_bytes / 1e6:.2f} MB, {act_flop / 1e9:.3f} GFLOP) = '
                f'{newton_ms / newton_bound_ms:.1f}x; dense bound: {dense_bound_ms:.5f} ms '
@@ -544,11 +701,11 @@ def newton_timing(last, phase):
                f'({bt_act_by}: {bt_act_flop / 1e9:.3f} GFLOP) = {newton_bt_ms / bt_act_ms:.1f}x, '
                f'dense bound {bt_bound_ms:.5f} ms ({bt_bound_by}: {bt_flop / 1e9:.3f} GFLOP)')
     return {'ms': newton_ms, 'plain_ms': eager_ms, 'bound_ms': newton_bound_ms,
-            'bound_by': newton_bound_by}
+            'bound_by': newton_bound_by, 'last_step_rel_err': err_done}
 
 
 def device_profile(dm, run, phase, n_steps=3):
-    """Phases 9 and 14: a device profile of a few steps: busy share, kernel
+    """Phases 9, 14, 19, 24 and 29: a device profile of a few steps: busy share, kernel
     launches per step, host and device time of the step's stages and of the
     port's two kernels, top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -577,7 +734,7 @@ def device_profile(dm, run, phase, n_steps=3):
     log(phase, f'{dm.m.robot}/{dm.m.scene}, {n_steps} steps: wall {prof_wall * 1e3:.1f} ms '
                f'(profiled), device busy {dev_us / 1e3:.1f} ms = '
                f'{dev_us / 1e4 / prof_wall:.1f}%; kernel launches {n_kernels} = '
-               f'{n_kernels / n_steps:.1f} per step')
+               f'{n_kernels / n_steps:.1f} per step; on {smi()}')
     for e in averages:
         if e.key in stages and e.device_type != cuda:
             log(phase, f'  stage {e.key:12s} host {e.cpu_time_total / 1e3:8.2f} ms, '
@@ -610,12 +767,14 @@ class OpCount(TorchDispatchMode):
 
 
 def narrow_phase_groups(dm, run, phase):
-    """Phase 14: each pair group of the narrow phase on the last main-path
-    state: ms on the stream (CUDA events around 3 calls, so it includes time
+    """Phases 9, 14, 19, 24 and 29: each pair group of the narrow phase on the
+    last main-path state (the card's name and power limit on the first
+    line): ms on the stream (CUDA events around 3 calls, so it includes time
     the card waits for launches: near the host time, the group is
     host-bound), host ms to enqueue, and the tensor operations it
     dispatches, views left out (each launches one kernel or a few)."""
     kin = kinematics.fk(dm, run['state'][0])
+    log(phase, f'narrow phase of {dm.m.robot}/{dm.m.scene} by pair group, on {smi()}:')
     for args in collision.group_args(dm, kin):   # collide's own gather
         t1, t2 = args[1]
         with OpCount() as ops:
@@ -635,6 +794,21 @@ def narrow_phase_groups(dm, run, phase):
                    f'{host_ms:.3f} ms, {ops.count} tensor operations')
 
 
+# The main paths, five phases each from phase 5 on (Newton agreement, main
+# path, card against CPU, Newton timing, profile): robot, scene, steps on
+# the card, the steps the CPU comparison starts from, the envs it steps, and
+# the agreement phase. aliengo's and b2's feet start above the floor and
+# touch it after ~25 and ~30 steps: their comparison starts at step 100.
+SCENES = (
+    ('spot', 'flat', STEPS, (0, 100), N_CPU_ENVS, spot_agreement),
+    ('go2', 'flat', STEPS, (0, 100), N_CPU_ENVS, go2_agreement),
+    ('aliengo', 'flat', STEPS, (100,), N_CPU_ENVS,
+     lambda dm, phase: pyramidal_agreement(dm, phase, (0.0, PRESS), phase5=True)),
+    ('b2', 'flat', STEPS, (100,), N_CPU_ENVS, pyramidal_agreement),
+    ('hyqreal2', 'random_boxes', 20, (0,), 4, pyramidal_agreement),
+)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--newton-agreement', action='store_true',
@@ -645,7 +819,7 @@ def main():
     dm = load_model('spot', 'flat', device='cuda', dtype=torch.float32)
     m = dm.m
     if args.newton_agreement:
-        _, failures, _ = newton_agreement(dm)
+        _, failures = spot_agreement(dm)
         for failure in failures:
             log(5, f'FAILED {failure}')
         sys.exit(1 if failures else 0)
@@ -661,8 +835,7 @@ def main():
         for line in out.splitlines():
             if 'ptxas' in line or 'registers' in line or 'spill' in line:
                 log(2, line.strip())
-    lay = constraint_layout(m)
-    sizes = (m.nv, lay.n_fl + lay.n_lim, min(len(lay.cone_slots), engine.MAX_CONE_CONTACTS))
+    sizes = newton_sizes(m)
     spd_blocks, per_block = spd.occupancy(m.nv)
     log(2, f'spd_solve at n={m.nv}: {spd_blocks} blocks of {per_block} systems per SM = '
            f'{spd_blocks * per_block} resident systems per SM')
@@ -708,51 +881,48 @@ def main():
            f'plain {plain_ms:.4f} ms, torch.linalg.solve {library_ms:.4f} ms, bound '
            f'{bound_ms:.5f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB, {n_flop / 1e6:.2f} MFLOP)')
 
-    # ---- 5. the fused Newton kernel against its plain version -------------------------
-    newton_abs_err, failures, _ = newton_agreement(dm)
-    if failures:
-        raise AssertionError('; '.join(failures))
+    # ---- 5-29. per main path: Newton agreement, the path, card against CPU, Newton
+    # timings, profile and narrow phase by group
+    spd_fields = {}
+    newton_fields = {}
+    for i, (robot, scene, steps, windows, n_cpu, agreement) in enumerate(SCENES):
+        phase = 5 + 5 * i
+        dm = load_model(robot, scene, device='cuda', dtype=torch.float32)
+        sizes = newton_sizes(dm.m)
+        blocks, per_block, smem = nf.occupancy(*sizes)
+        log(phase, f'newton_fused at {robot}/{scene} (nv, ns, C)={sizes}: {blocks} blocks of '
+                   f'{per_block} envs per SM = {blocks * per_block} resident envs per SM, '
+                   f'{smem} B of shared memory per block ({smem / per_block / 1024:.2f} KB '
+                   f'per env)')
+        newton_abs_err, failures = agreement(dm, phase)
+        if failures:
+            raise AssertionError('; '.join(failures))
+        run = main_path(dm, phase + 1, steps, windows, n_cpu)
+        card_against_cpu(dm, run, phase + 2)
+        newton = newton_timing(run['last'], phase + 3)
+        device_profile(dm, run, phase + 4)
+        narrow_phase_groups(dm, run, phase + 4)
+        prefix = f'{robot}_' if i else ''    # spot's fields are the kernels' own
+        spd_fields[f'{prefix}launches'] = run['launches']['spd_solve']
+        newton_fields.update({f'{prefix}launches': run['launches']['newton_fused'],
+                              f'{prefix}max_abs_err': newton_abs_err,
+                              **{prefix + k: v for k, v in newton.items()}})
+        del run
 
-    # ---- 6-9. spot/flat: the main path, card against CPU, Newton timings, profile -----
-    spot = main_path(dm, 6)
-    card_against_cpu('spot', spot, 7)
-    newton = newton_timing(spot['last'], 8)
-    device_profile(dm, spot, 9)
-
-    # ---- 10-14. go2/flat, the same phases ------------------------------------------------
-    go2 = load_model('go2', 'flat', device='cuda', dtype=torch.float32)
-    lay = constraint_layout(go2.m)
-    sizes = (go2.m.nv, lay.n_fl + lay.n_lim, min(len(lay.cone_slots), engine.MAX_CONE_CONTACTS))
-    blocks, per_block, smem = nf.occupancy(*sizes)
-    log(10, f'newton_fused at go2 (nv, ns, C)={sizes}: {blocks} blocks of {per_block} envs per '
-            f'SM = {blocks * per_block} resident envs per SM, {smem} B of shared memory per '
-            f'block ({smem / per_block / 1024:.2f} KB per env)')
-    go2_newton_abs_err, failures = go2_agreement(go2)
-    if failures:
-        raise AssertionError('; '.join(failures))
-    go2_run = main_path(go2, 11)
-    card_against_cpu('go2', go2_run, 12)
-    go2_newton = newton_timing(go2_run['last'], 13)
-    device_profile(go2, go2_run, 14)
-    narrow_phase_groups(go2, go2_run, 14)
-
+    log('time', f'seconds per phase (from the last line of the phase before): '
+                f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')
     print(json.dumps({'kernels': [{
         'name': 'spd_solve', 'route': 'cuda',
         'source': 'gym_quadruped_tpu_torch/csrc/spd_solve.cu',
         'replaces': 'gym_quadruped_tpu/ops/spd_solve.py:37',
-        'launches': spot['launches']['spd_solve'], 'max_abs_err': max_abs_err,
-        'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': library_ms,
-        'go2_launches': go2_run['launches']['spd_solve']}, {
+        'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': library_ms,
+        **spd_fields}, {
         'name': 'newton_fused', 'route': 'cuda',
         'source': 'gym_quadruped_tpu_torch/csrc/newton_fused.cu',
         'replaces': 'scripts/experimental/newton_solve.py:124, '
                     'scripts/experimental/newton_bt.py:272',
-        'launches': spot['launches']['newton_fused'], 'max_abs_err': newton_abs_err,
-        **newton, 'library_ms': None,
-        'go2_launches': go2_run['launches']['newton_fused'],
-        'go2_max_abs_err': go2_newton_abs_err,
-        **{f'go2_{k}': v for k, v in go2_newton.items()}}]}))
+        'library_ms': None, **newton_fields}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -44,8 +44,10 @@
 // warp that leaves its loop and a ragged last block's spare warps return at
 // once. Two envs to a block: a block keeps its shared memory until its
 // slowest env is done, so small blocks waste little of it. At staging the
-// warp compacts the active rows with a ballot and a prefix count: only the na
-// active simple rows and the nc active cone blocks are staged, in their
+// warp compacts the active rows with a ballot per 32 rows and a prefix count
+// (up to MAX_NS = 160 simple rows, the 148-158 of a pyramidal model's 32
+// culled slots x 4 facets plus its friction-loss and limit rows): only the
+// na active simple rows and the nc active cone blocks are staged, in their
 // original order, and every loop walks only those. Dropping a row drops exact
 // zeros from each sum, and adding a zero does not change an f32 sum, so
 // compaction changes no result; inactive rows get zero forces. Everything the
@@ -53,11 +55,12 @@
 // above; 8 blocks = 16 envs per SM, where the launch bounds' 128 registers a
 // thread allow 16 warps too). Each phase spreads over the lanes: rows, forces
 // and the cone curvature over the active rows and blocks; g and M p over the
-// dofs; H's lower triangle over its pairs (with an exact shortcut for simple
-// rows of one nonzero, and each active block's Hc_c cJ_c formed in a 6 x nv
-// scratch and folded into H straight away); the Cholesky column by column
-// with lane i owning row i in registers; the 15 grid points of phi' on lane
-// pairs, each lane summing half the rows. The 6 bisections stay serial, each
+// dofs; H's lower triangle over its pairs (with an exact shortcut when every
+// active simple row has one nonzero, which a pyramidal facet row, dense over
+// the dofs of its bodies, does not; and each active block's Hc_c cJ_c formed
+// in a 6 x nv scratch and folded into H straight away); the Cholesky column
+// by column with lane i owning row i in registers; the 15 grid points of phi'
+// on lane pairs, each lane summing half the rows. The 6 bisections stay serial, each
 // phi' summed over the active rows across the lanes: on spot/flat about 16-23
 // rows and blocks are active, so one warp-wide evaluation costs one cone
 // block and a butterfly, where evaluating the 63 nodes of the bisection tree
@@ -85,12 +88,16 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int GRID = 15;          // step-length grid points
 constexpr float T_MAX = 256.0f;   // the grid's last point
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_NS = 160;       // simple rows: 5 words of the active-row ballot
+constexpr int MAX_C = 32;         // cone blocks: 1 word
 
 // One env's shared memory, as float offsets (M, H, J, cJ and Tc have the
 // odd row stride ld = nv | 1; the row arrays hold the active simple rows,
-// then the active cone blocks' rows).
+// then the active cone blocks' rows; slot, an int per simple row, is the
+// row's place among the active rows or -1).
 struct Layout {
-  int ld, M, H, J, cJ, Hc, Tc, u, du, f, aref, D, fl, cw, col, mu, dm, as, a, r, p, Mp, grid, total;
+  int ld, M, H, J, cJ, Hc, Tc, u, du, f, aref, D, fl, cw, col, slot, mu, dm, as, a, r, p, Mp,
+      grid, total;
 };
 
 __host__ __device__ inline int take(int& o, int n) {
@@ -118,6 +125,7 @@ __host__ __device__ Layout layout(int nv, int ns, int C) {
   s.fl = take(o, ns);
   s.cw = take(o, ns);
   s.col = take(o, ns);
+  s.slot = take(o, ns);
   s.mu = take(o, 5 * C);
   s.dm = take(o, 6 * C);
   s.as = take(o, nv);
@@ -150,14 +158,8 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// Bit i of the (up to 64-bit) mask m0, m1 and the count of set bits below it.
-__device__ __forceinline__ bool has(unsigned m0, unsigned m1, int i) {
-  return ((i < 32 ? m0 >> i : m1 >> (i - 32)) & 1u) != 0;
-}
-__device__ __forceinline__ int rank(unsigned m0, unsigned m1, int i) {
-  return i < 32 ? __popc(m0 & ((1u << i) - 1u))
-                : __popc(m0) + __popc(m1 & ((1u << (i - 32)) - 1u));
-}
+// The count of set bits of m below bit i (i < 32).
+__device__ __forceinline__ int rank(unsigned m, int i) { return __popc(m & ((1u << i) - 1u)); }
 
 // Row-separable force: one-sided quadratic (uni = 1) or Huber clamp.
 __device__ __forceinline__ float simple_force(float u, float D, float fl, float uni) {
@@ -476,17 +478,27 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
   float* base = smem + warp * s.total;
   const int ld = s.ld, nn = nv * nv, R6 = 6 * C;
 
-  // ---- compact the active rows: bit i of (sm0, sm1) is simple row i, bit c of
-  // cm is cone block c; a row's rank among the active ones is its slot -----------
+  // ---- compact the active rows: one ballot per word of 32 simple rows, the
+  // active rows before a row and its own word's bits below it give its slot,
+  // kept in shared memory (a dynamic index would put an array of words in
+  // local memory); bit c of cm is cone block c, its rank its slot ------------------
   const unsigned char* act = gAct + env * ns;
-  const unsigned sm0 = __ballot_sync(FULL, lane < ns && act[lane]);
-  const unsigned sm1 = __ballot_sync(FULL, lane + 32 < ns && act[lane + 32]);
+  int* slot = reinterpret_cast<int*>(base + s.slot);
+  int na = 0;
+  for (int w = 0; w < (ns + 31) / 32; ++w) {
+    const int i = 32 * w + lane;
+    const bool on = i < ns && act[i];
+    const unsigned bits = __ballot_sync(FULL, on);
+    if (i < ns) slot[i] = on ? na + rank(bits, lane) : -1;
+    na += __popc(bits);
+  }
   const unsigned cm = __ballot_sync(FULL, lane < C && gCact[env * C + lane]);
+  __syncwarp();
 
   Env e;
   e.nv = nv;
   e.ld = ld;
-  e.na = __popc(sm0) + __popc(sm1);
+  e.na = na;
   e.nc = __popc(cm);
   e.M = base + s.M;
   e.H = base + s.H;
@@ -518,13 +530,13 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
     e.a[lane] = gA0[env * nv + lane];
   }
   for (int i = lane; i < ns * nv; i += 32) {
-    const int q = i / nv;
-    if (has(sm0, sm1, q)) e.J[rank(sm0, sm1, q) * ld + i - q * nv] = gJ[env * ns * nv + i];
+    const int q = i / nv, k = slot[q];
+    if (k >= 0) e.J[k * ld + i - q * nv] = gJ[env * ns * nv + i];
   }
   for (int i = lane; i < ns; i += 32) {
-    if (!has(sm0, sm1, i)) continue;
+    const int k = slot[i];
+    if (k < 0) continue;
     const long long g = env * ns + i;
-    const int k = rank(sm0, sm1, i);
     e.aref[k] = gAref[g];
     e.D[k] = 1.0f / gR[g];
     e.fl[k] = gFl[g];
@@ -532,21 +544,21 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
   for (int i = lane; i < R6 * nv; i += 32) {
     const int q = i / nv, c = q / 6;
     if ((cm >> c) & 1u) {
-      e.cJ[(6 * rank(cm, 0u, c) + q - 6 * c) * ld + i - q * nv] = gCJ[env * R6 * nv + i];
+      e.cJ[(6 * rank(cm, c) + q - 6 * c) * ld + i - q * nv] = gCJ[env * R6 * nv + i];
     }
   }
   for (int i = lane; i < R6; i += 32) {
     const int c = i / 6;
     if (!((cm >> c) & 1u)) continue;
     const long long g = env * R6 + i;
-    const int o = 6 * rank(cm, 0u, c) + i - 6 * c;
+    const int o = 6 * rank(cm, c) + i - 6 * c;
     e.aref[e.na + o] = gCaref[g];
     e.dm[o] = gDm[g];
     e.D[e.na + o] = 1.0f / gCR[g] * gDm[g];
   }
   for (int i = lane; i < 5 * C; i += 32) {
     const int c = i / 5;
-    if ((cm >> c) & 1u) e.mu[5 * rank(cm, 0u, c) + i - 5 * c] = gMu[env * 5 * C + i];
+    if ((cm >> c) & 1u) e.mu[5 * rank(cm, c) + i - 5 * c] = gMu[env * 5 * C + i];
   }
   if (lane < GRID) e.grid[lane] = gGrid[lane];
   __syncwarp();
@@ -647,12 +659,12 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
     qfrc_out[env * nv + lane] = constraint_force(e, lane);
   }
   for (int i = lane; i < ns; i += 32) {
-    fs_out[env * ns + i] = has(sm0, sm1, i) ? e.f[rank(sm0, sm1, i)] : 0.0f;
+    fs_out[env * ns + i] = slot[i] >= 0 ? e.f[slot[i]] : 0.0f;
   }
   for (int i = lane; i < R6; i += 32) {
     const int c = i / 6;
     const bool on = (cm >> c) & 1u;
-    fc_out[env * R6 + i] = on ? e.f[e.na + 6 * rank(cm, 0u, c) + i - 6 * c] : 0.0f;
+    fc_out[env * R6 + i] = on ? e.f[e.na + 6 * rank(cm, c) + i - 6 * c] : 0.0f;
   }
   if (lane == 0 && iters_out != nullptr) iters_out[env] = it;
 }
@@ -695,7 +707,7 @@ extern "C" int gqt_newton_fused_f32(
     float* qfrc, int* iters, int B, int nv, int ns, int C, int iterations,
     int ls_iterations, float tol, void* stream) {
   if (B <= 0) return 0;
-  if (nv != GQT_NV || ns < 0 || ns > 64 || C < 0 || C > 32 || iterations < 0 ||
+  if (nv != GQT_NV || ns < 0 || ns > MAX_NS || C < 0 || C > MAX_C || iterations < 0 ||
       ls_iterations < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

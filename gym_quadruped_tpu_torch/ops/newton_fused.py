@@ -15,7 +15,7 @@ warm start (B, nv) (None starts from a_smooth), and return (qacc (B, nv),
 f_simple (B, ns), f_cone (B, C, 6), qfrc_constraint (B, nv)).
 
 On CPU tensors they run the plain version, `physics.solver.solve` (any float
-dtype). On CUDA tensors they launch the kernel (f32, nv <= 32, ns <= 64,
+dtype). On CUDA tensors they launch the kernel (f32, nv <= 32, ns <= 160,
 C <= 32, contiguous, one device) or raise; they never fall back, not even
 with no rows at all (ns = C = 0), where the kernel writes a_smooth as the
 plain version does. The kernel is built with nvcc, one library for each nv,
@@ -35,7 +35,7 @@ from gym_quadruped_tpu_torch.physics import solver
 from gym_quadruped_tpu_torch.physics.constraints import Efc
 
 MAX_NV = 32
-MAX_NS = 64
+MAX_NS = 160
 MAX_C = 32
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'newton_fused.cu'
 

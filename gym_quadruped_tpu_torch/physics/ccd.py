@@ -1,8 +1,8 @@
 """Convex contact by support-function SAT, pattern refinement and MuJoCo's
-multiccd perturbation manifold, for the capsule-box pairs.
+multiccd perturbation manifold, for the capsule-box and cylinder-box pairs.
 
-Counterpart of gym_quadruped_tpu/physics/ccd.py, limited to what capsule-box
-needs. MuJoCo collides convex pairs with its native CCD (GJK/EPA) plus
+Counterpart of gym_quadruped_tpu/physics/ccd.py, limited to what those pairs
+need. MuJoCo collides convex pairs with its native CCD (GJK/EPA) plus
 multiccd: one penetration direction and depth per pair, then up to 4 more
 manifold points from perturbed configurations. The perturbation rule the
 reference decoded from MuJoCo 3.10:
@@ -115,6 +115,17 @@ def support_cap(d, p, R, radius, halflen):
     return p + (torch.sign(da) * halflen)[..., None] * a + radius[..., None] * d
 
 
+def support_cyl(d, p, R, radius, halflen):
+    """The cylinder's support point: the cap along sign(d . a), the rim point
+    along d's radial part (the cap's center when d is along the axis)."""
+    a = R[..., :, 2]
+    da = _dot(d, a)
+    radial = d - da[..., None] * a
+    nr = _norm(radial, keepdim=True)
+    rdir = torch.where(nr > 1e-12, radial / torch.clamp_min(nr, 1e-12), 0.0)
+    return p + (torch.sign(da) * halflen)[..., None] * a + radius[..., None] * rdir
+
+
 def supval_box(d, p, R, size):
     """max of d.x over the box."""
     return _dot(d, p) + (_dotR(d, R).abs() * size).sum(-1)
@@ -124,6 +135,13 @@ def supval_cap(d, p, R, radius, halflen):
     """max of d.x over the capsule."""
     a = R[..., :, 2]
     return _dot(d, p) + halflen * _dot(d, a).abs() + radius
+
+
+def supval_cyl(d, p, R, radius, halflen):
+    """max of d.x over the cylinder."""
+    a = R[..., :, 2]
+    da = _dot(d, a)
+    return _dot(d, p) + halflen * da.abs() + radius * _norm(d - da[..., None] * a)
 
 
 # ---------------------------------------------------------------------------------
@@ -143,6 +161,17 @@ def clip_into_cap(pt, p, R, radius, halflen):
     on = _norm(off, keepdim=True)
     return axis_pt + off * (torch.minimum(on, radius[..., None])
                             / torch.clamp_min(on, 1e-12))
+
+
+def clip_into_cyl(pt, p, R, radius, halflen):
+    a = R[..., :, 2]
+    rel = pt - p
+    ra = _dot(rel, a)
+    ax = torch.clamp(ra, -halflen, halflen)
+    rad = rel - ra[..., None] * a
+    rn = _norm(rad, keepdim=True)
+    rad = rad * (torch.minimum(rn, radius[..., None]) / torch.clamp_min(rn, 1e-12))
+    return p + ax[..., None] * a + rad
 
 
 def clip_face_box(pt, p, R, size, mask, sgn):
@@ -173,6 +202,34 @@ def cap_face(d, R):
     """(mask_ax, sgn_ax) of the capsule support face along d."""
     da = _dot(d, R[..., :, 2])
     return da.abs() > _FACE_TOL, torch.sign(da)
+
+
+def clip_face_cyl(pt, p, R, radius, halflen, mask_ax, sgn_ax, mask_rad, d):
+    """Project pt onto a support face of the cylinder along d: the axial
+    coordinate pinned to sgn_ax*halflen where `mask_ax` is set, else
+    clamped; the radial part pinned to the rim along d's radial direction
+    where `mask_rad` is set, else clamped into the disc."""
+    a = R[..., :, 2]
+    da = _dot(d, a)
+    rel = pt - p
+    ra = _dot(rel, a)
+    ax = torch.where(mask_ax, sgn_ax * halflen, torch.clamp(ra, -halflen, halflen))
+    dperp = d - da[..., None] * a
+    npr = _norm(dperp, keepdim=True)
+    rad_pin = radius[..., None] * dperp / torch.clamp_min(npr, 1e-12)
+    rperp = rel - ra[..., None] * a
+    rn = _norm(rperp, keepdim=True)
+    rad_free = rperp * (torch.minimum(rn, radius[..., None]) / torch.clamp_min(rn, 1e-12))
+    return p + ax[..., None] * a + torch.where(mask_rad, rad_pin, rad_free)
+
+
+def cyl_face(d, R):
+    """(mask_ax, sgn_ax, mask_rad (..., 1)) of the cylinder support face
+    along d."""
+    a = R[..., :, 2]
+    da = _dot(d, a)
+    npr = _norm(d - da[..., None] * a, keepdim=True)
+    return da.abs() > _FACE_TOL, torch.sign(da), npr > _FACE_TOL
 
 
 def pocs(w, clip_a, clip_b):

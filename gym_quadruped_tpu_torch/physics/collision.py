@@ -8,19 +8,23 @@ pair owns a fixed number of slots, always computed and masked later by
 (robot); `dist` is the signed separation (negative = penetration) and `pos`
 the midpoint.
 
-Ported pair groups: plane against sphere, capsule and box; world box against
-sphere and capsule; sphere-sphere, sphere-capsule, sphere-box,
-capsule-capsule, capsule-box (the CCD of physics/ccd.py) and box-box: every
-group of go2's flat, ramp, slippery and stairs scenes. `collide` raises
-NotImplementedError for any other group (cylinder, hfield, mesh). The slot
-layout (`contact_layout`) covers every pair type of the reference, so the
-static tables agree for every model.
+Ported pair groups: plane against sphere, capsule, cylinder and box; world
+box against sphere and capsule; sphere-sphere, sphere-capsule,
+sphere-cylinder, sphere-box, capsule-capsule, capsule-cylinder and
+cylinder-cylinder (both as capsule pairs, the reference's approximation),
+capsule-box and cylinder-box (the CCD of physics/ccd.py) and box-box: every
+group of the flat scenes of go1, go2, aliengo, b2, hyqreal2 and spot and of
+go2's ramp, slippery and stairs and hyqreal2's random_boxes scenes.
+`collide` raises NotImplementedError for any other group (hfield, mesh).
+The slot layout (`contact_layout`) covers every pair type of the reference,
+so the static tables agree for every model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -213,6 +217,29 @@ def _plane_capsule(ppos, pmat, cpos, cmat, radius, halflen):
     return d, pos, n[..., None, :].expand_as(pos)
 
 
+def _plane_cylinder(ppos, pmat, cpos, cmat, radius, halflen):
+    """3 points against the plane: on each cap's rim the point nearest the
+    plane, then the center lowered by the caps' reach along the normal
+    (exact when the cylinder rests flat or on a rim edge). An upright
+    cylinder has no rim direction and takes the plane's x axis."""
+    n = pmat[..., :, 2]
+    axis = cmat[..., :, 2]
+    proj = -n + axis * _dot(axis, n)[..., None]       # -n without its axial part
+    norm = _norm(proj)
+    safe = torch.where((norm > 1e-10)[..., None],
+                       proj / torch.clamp_min(norm, 1e-10)[..., None], pmat[..., :, 0])
+    h = halflen[:, None]
+    rims = torch.stack([cpos + axis * h, cpos + axis * -h], -2) \
+        + safe[..., None, :] * radius[:, None, None]                 # (B, G, 2, 3)
+    d_rim = _dot(n[..., None, :], rims - ppos[..., None, :])
+    # the reference's `- |proj| 0` term, kept for its arithmetic
+    dc = _dot(n, cpos - ppos) - _dot(n, axis).abs() * halflen - norm * 0.0
+    d = torch.cat([d_rim, dc[..., None]], -1)
+    pts = torch.cat([rims, cpos[..., None, :]], -2)
+    pos = pts - (0.5 * d)[..., None] * n[..., None, :]
+    return d, pos, n[..., None, :].expand_as(pos)
+
+
 def _box_corners(p, R, size, signs):
     """(..., 8, 3) world corners of boxes p (..., 3), R (..., 3, 3) with
     sizes (..., 3) that broadcast against them, in the order of `signs`
@@ -286,6 +313,40 @@ def _sphere_capsule(c, r_s, cpos, cmat, r_c, halflen, up):
     axis = cmat[..., :, 2] * halflen[:, None]
     q = _closest_on_segment(c, cpos - axis, cpos + axis)
     return _sphere_sphere(c, r_s, q, r_c, up)
+
+
+def _sphere_cylinder(c, r_s, cpos, cmat, R_c, halflen):
+    """Sphere against the solid cylinder by the closest point of its surface
+    (side, cap or rim); a center inside leaves by the nearer of the side
+    (strictly nearer) and the cap on sign(a)'s side. Normal sphere ->
+    cylinder."""
+    axis = cmat[..., :, 2]
+    rel = c - cpos
+    a = _dot(rel, axis)                                # axial coordinate
+    radial = rel - a[..., None] * axis
+    rlen = _norm(radial)
+    rdir = torch.where((rlen > 1e-12)[..., None],
+                       radial / torch.clamp_min(rlen, 1e-12)[..., None], cmat[..., :, 0])
+    a_cl = torch.clamp(a, -halflen, halflen)
+    r_cl = torch.minimum(rlen, R_c)
+    inside = (a.abs() < halflen) & (rlen < R_c)
+    q_out = cpos + axis * a_cl[..., None] + rdir * r_cl[..., None]
+    d_side = R_c - rlen
+    d_cap = halflen - a.abs()
+    q_side = cpos + axis * a[..., None] + rdir * R_c[:, None]
+    q_cap = cpos + axis * (torch.sign(a) * halflen)[..., None] + rdir * rlen[..., None]
+    q_in = torch.where((d_side < d_cap)[..., None], q_side, q_cap)
+    q = torch.where(inside[..., None], q_in, q_out)
+    dvec = c - q
+    dlen = _norm(dvec)
+    far = (dlen > 1e-12)[..., None]
+    unit = dvec / torch.clamp_min(dlen, 1e-12)[..., None]
+    n_out = torch.where(far, -dvec / torch.clamp_min(dlen, 1e-12)[..., None], -axis)
+    n_in = torch.where(far, unit, axis)
+    n = torch.where(inside[..., None], n_in, n_out)
+    dist = torch.where(inside, -(dlen + r_s), dlen - r_s)
+    pos = c + n * (r_s + 0.5 * dist)[..., None]
+    return dist[..., None], pos[..., None, :], n[..., None, :]
 
 
 def _segment_segment(a1, b1, a2, b2):
@@ -406,17 +467,36 @@ def _box_box(p1, R1, s1, p2, R2, s2, signs):
     return _deepest_k(d, pos, n, 4)
 
 
-def _cap_box(p1, R1, radius, halflen, p2, R2, size, signs):
-    """Capsule (geom A) against box (geom B) by the reference's decoded
-    native-CCD + multiccd pipeline: SAT over 16 candidate axes, 16 rounds of
-    pattern refinement and a snap onto the tie lattice; then the 4 perturbed
-    configurations (8 rounds from r0 8e-3 and a snap each), their witnesses,
-    and the 5-slot manifold. radius and halflen (G,), size (G, 3). Normal A
-    -> B."""
+class _Shape(NamedTuple):
+    """The support, face and clip functions of the convex geom A of the CCD
+    (ccd.py); `face(d, R)` gives the tuple that `clip_face` takes before d."""
+
+    supval: Callable
+    support: Callable
+    face: Callable
+    clip_face: Callable
+    clip_into: Callable
+
+
+_CAPSULE = _Shape(ccd.supval_cap, ccd.support_cap, ccd.cap_face, ccd.clip_face_cap,
+                  ccd.clip_into_cap)
+_CYLINDER = _Shape(ccd.supval_cyl, ccd.support_cyl, ccd.cyl_face, ccd.clip_face_cyl,
+                   ccd.clip_into_cyl)
+
+
+def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
+    """Capsule or cylinder (geom A, `shape`) against box (geom B) by the
+    reference's decoded native-CCD + multiccd pipeline: SAT over 16
+    candidate axes (the 7 box and cross axes, the axis to the box center
+    and the 8 radial directions to the box corners), 16 rounds of pattern
+    refinement and a snap onto the tie lattice (A's axis, B's axes); then
+    the 4 perturbed configurations (8 rounds from r0 8e-3 and a snap each),
+    their witnesses started with the side-line endpoint bias, and the
+    5-slot manifold. radius and halflen (G,), size (G, 3). Normal A -> B."""
     rad1, hl1, size1 = radius[:, None], halflen[:, None], size[:, None, :]
 
     def depth_fn(d):                        # d (B, G, N, 3)
-        return (ccd.supval_cap(d, p1[..., None, :], R1[..., None, :, :], rad1, hl1)
+        return (shape.supval(d, p1[..., None, :], R1[..., None, :, :], rad1, hl1)
                 + ccd.supval_box(-d, p2[..., None, :], R2[..., None, :, :], size1))
 
     a = R1[..., :, 2]
@@ -441,36 +521,36 @@ def _cap_box(p1, R1, radius, halflen, p2, R2, size, signs):
 
     def depth_fn_p(d):                      # d (B, G, 4, 3) or (B, G, 4, N, 3)
         if d.dim() == 4:
-            return (ccd.supval_cap(d, p1p, R1p, rad1, hl1)
+            return (shape.supval(d, p1p, R1p, rad1, hl1)
                     + ccd.supval_box(-d, p2p, R2p, size1))
-        return (ccd.supval_cap(d, p1p[..., None, :], R1p[..., None, :, :], rad2, hl2)
+        return (shape.supval(d, p1p[..., None, :], R1p[..., None, :, :], rad2, hl2)
                 + ccd.supval_box(-d, p2p[..., None, :], R2p[..., None, :, :], size2))
 
     n0b = n0[..., None, :].expand(n0.shape[:-1] + (4, 3))
     depth_p, n_p = ccd.pattern_refine(depth_fn_p, n0b, depth_fn_p(n0b), rounds=8, r0=8e-3)
     axes_p = torch.cat([R1p[..., :, 2][..., None, :], R2p.transpose(-1, -2)], -2)
     depth_p, n_p = ccd.snap_polish(depth_fn_p, depth_p, n_p, axes_p)
-    xa = ccd.support_cap(n_p, p1p, R1p, rad1, hl1)
+    xa = shape.support(n_p, p1p, R1p, rad1, hl1)
     xb = ccd.support_box(-n_p, p2p, R2p, size1)
     # endpoint bias for tie-degenerate tilts: +-(t . a) 2 halflen a per config
     t1b, t2b = ccd.tangents(n0)
     ta1, ta2 = _dot(t1b, a), _dot(t2b, a)
     bias = (torch.stack([ta1, -ta1, ta2, -ta2], -1)
             * (2.0 * hl1))[..., None] * a[..., None, :]            # (B, G, 4, 3)
-    m_ax, m_sgn = ccd.cap_face(n0, R1)
+    face0 = shape.face(n0, R1)
     f_mask, f_sgn = ccd.box_face(-n0, R2)
     w0 = ccd.pocs(
-        0.5 * (ccd.support_cap(n0, p1, R1, radius, halflen)
+        0.5 * (shape.support(n0, p1, R1, radius, halflen)
                + ccd.support_box(-n0, p2, R2, size)),
-        lambda pt: ccd.clip_face_cap(pt, p1, R1, radius, halflen, m_ax, m_sgn, n0),
+        lambda pt: shape.clip_face(pt, p1, R1, radius, halflen, *face0, n0),
         lambda pt: ccd.clip_face_box(pt, p2, R2, size, f_mask, f_sgn))
-    mask_ax, sgn_ax = ccd.cap_face(n_p, R1p)
+    face_p = shape.face(n_p, R1p)
     bmask, bsgn = ccd.box_face(-n_p, R2p)
     pos_p = ccd.witness(
         n_p, depth_p, [0.5 * (xa + xb) + bias, w0[..., None, :]],
-        lambda pt: ccd.clip_face_cap(pt, p1p, R1p, rad1, hl1, mask_ax, sgn_ax, n_p),
+        lambda pt: shape.clip_face(pt, p1p, R1p, rad1, hl1, *face_p, n_p),
         lambda pt: ccd.clip_face_box(pt, p2p, R2p, size1, bmask, bsgn),
-        lambda pt: ccd.clip_into_cap(pt, p1p, R1p, rad1, hl1),
+        lambda pt: shape.clip_into(pt, p1p, R1p, rad1, hl1),
         lambda pt: ccd.clip_into_box(pt, p2p, R2p, size1))
     return ccd.manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p)
 
@@ -531,30 +611,40 @@ def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2):
         return _plane_capsule(p1, R1, p2, R2, s2[:, 0], s2[:, 1])
     if key == (GEOM_PLANE, GEOM_BOX):
         return _plane_box(p1, R1, p2, R2, s2, signs)
+    if key == (GEOM_PLANE, GEOM_CYLINDER):
+        return _plane_cylinder(p1, R1, p2, R2, s2[:, 0], s2[:, 1])
     if key == (GEOM_BOX, GEOM_SPHERE):           # world box
         return _box_sphere(p1, R1, s1, p2, s2[:, 0])
     if key == (GEOM_BOX, GEOM_CAPSULE):          # world box: the CCD runs capsule first
-        d, p, n = _cap_box(p2, R2, s2[:, 0], s2[:, 1], p1, R1, s1, signs)
+        d, p, n = _ccd_box(_CAPSULE, p2, R2, s2[:, 0], s2[:, 1], p1, R1, s1, signs)
         return d, p, -n
     # robot-robot pairs, type1 <= type2, normal geom1 -> geom2
     if key == (GEOM_SPHERE, GEOM_SPHERE):
         return _sphere_sphere(p1, s1[:, 0], p2, s2[:, 0], up)
     if key == (GEOM_SPHERE, GEOM_CAPSULE):
         return _sphere_capsule(p1, s1[:, 0], p2, R2, s2[:, 0], s2[:, 1], up)
+    if key == (GEOM_SPHERE, GEOM_CYLINDER):
+        return _sphere_cylinder(p1, s1[:, 0], p2, R2, s2[:, 0], s2[:, 1])
     if key == (GEOM_SPHERE, GEOM_BOX):           # _box_sphere's normal is box -> sphere
         d, p, n = _box_sphere(p2, R2, s2, p1, s1[:, 0])
         return d, p, -n
-    if key == (GEOM_CAPSULE, GEOM_CAPSULE):
+    if key in ((GEOM_CAPSULE, GEOM_CAPSULE), (GEOM_CAPSULE, GEOM_CYLINDER),
+               (GEOM_CYLINDER, GEOM_CYLINDER)):
+        # a cylinder as the capsule of its radius and half-length: the
+        # reference's documented approximation of its flat caps and rims
         return _capsule_capsule(p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2[:, 0], s2[:, 1], up)
     if key == (GEOM_CAPSULE, GEOM_BOX):
-        return _cap_box(p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2, signs)
+        return _ccd_box(_CAPSULE, p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2, signs)
+    if key == (GEOM_CYLINDER, GEOM_BOX):
+        return _ccd_box(_CYLINDER, p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2, signs)
     if key == (GEOM_BOX, GEOM_BOX):
         return _box_box(p1, R1, s1, p2, R2, s2, signs)
     t1, t2 = key
     raise NotImplementedError(
         f'narrow phase for {_GEOM_NAMES.get(t1, t1)}-{_GEOM_NAMES.get(t2, t2)} pairs '
-        f'is not ported (ported: plane against sphere, capsule and box; world box '
-        f'against sphere and capsule; sphere, capsule and box pairs of the robot)')
+        f'is not ported (ported: plane against sphere, capsule, cylinder and box; world '
+        f'box against sphere and capsule; sphere, capsule, cylinder and box pairs of the '
+        f'robot)')
 
 
 def group_args(dm: DeviceModel, kin):

@@ -4,8 +4,10 @@ a static row layout.
 Counterpart of gym_quadruped_tpu/physics/constraints.py (mj_makeConstraint /
 mj_projectConstraint). Two groups:
 
-  * simple rows: dof friction loss (Huber) and joint limits (one-sided), a
-    dense (B, ns, nv) Jacobian;
+  * simple rows: dof friction loss (Huber), joint limits (one-sided) and,
+    with cone = pyramidal, 2 (condim - 1) one-sided rows per contact slot,
+    culled to the `max_cone` nearest slots before assembly: a dense (B, ns,
+    nv) Jacobian;
   * cone blocks: elliptic contacts with condim > 1, a padded (B, C, 6, nv)
     Jacobian per slot, culled to the `max_cone` nearest slots before assembly.
 
@@ -15,8 +17,10 @@ Soft-constraint parameters per row:
   aref   = -B (J qvel) - K imp x        (friction rows: no position term)
   R      = max(1 - imp, 1e-4) / imp * diagApprox
 
-Ported: friction-loss rows, joint-limit rows and elliptic cone blocks. The
-pyramidal-cone and frictionless contact rows raise NotImplementedError.
+Ported: friction-loss rows, joint-limit rows, elliptic cone blocks and the
+culled pyramidal rows of a uniform condim > 1. The frictionless (condim 1)
+and mixed-condim contact rows (the reference's per-slot loop) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -177,7 +181,8 @@ def kb(solref, solimp):
 @dataclasses.dataclass
 class Efc:
     """Assembled constraint rows, each with a leading env axis B: simple rows
-    plus the culled cone blocks."""
+    (friction loss, limits, then the culled pyramidal contact rows) plus the
+    culled cone blocks."""
 
     J: torch.Tensor             # (B, ns, nv)
     aref: torch.Tensor          # (B, ns)
@@ -192,6 +197,10 @@ class Efc:
     cone_dim_mask: torch.Tensor  # (B, C, 6)
     cone_dist: torch.Tensor     # (B, C)
     cone_sel: torch.Tensor      # (B, C) int64 cone-slot index of each block
+    # (B, Kp) int64, with cone = pyramidal: the index into the layout's
+    # simple_con_slots of each culled slot, whose 2 (condim - 1) rows follow
+    # the friction-loss and limit rows in J; None otherwise
+    pyr_sel: torch.Tensor | None = None
 
 
 def _point_jacobians_dyn(kin: Kin, cdof: torch.Tensor, pos: torch.Tensor,
@@ -208,21 +217,95 @@ def _point_jacobians_dyn(kin: Kin, cdof: torch.Tensor, pos: torch.Tensor,
     return jacp, jacr
 
 
+@dataclasses.dataclass
+class _Culled:
+    """The contact slots of one kind (cone or pyramidal), culled to the
+    nearest `max_cone` per env: their selection, contact-frame rows and
+    soft-constraint scalars, each (B, K, ...)."""
+
+    sel: torch.Tensor      # (B, K) indices into the kind's slot list
+    dist: torch.Tensor     # (B, K)
+    dirs: torch.Tensor     # (B, K, 6, nv) frame rows: normal, t1, t2, then rotational
+    vel6: torch.Tensor     # (B, K, 6) dirs @ qvel
+    x: torch.Tensor        # (B, K) dist - margin
+    imp: torch.Tensor
+    K: torch.Tensor
+    Bd: torch.Tensor
+    rimp: torch.Tensor     # max(1 - imp, 1e-4) / imp
+    include: torch.Tensor  # (B, K) bool, dist < inclusion threshold
+    table: object          # table(name, make): a static (S_kind, ...) table at sel
+
+
+def _culled_slots(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, slots,
+                  kind: str, max_cone: int | None) -> _Culled:
+    """The `max_cone` nearest of the slots `slots` in ascending distance
+    (all of them without a cap), the lower slot first among equal distances,
+    as jax.lax.top_k orders them (torch.topk promises no order among ties)."""
+    m = dm.m
+    lay = constraint_layout(m)
+    B = qvel.shape[0]
+    feat = contacts.feat[:, :, dm.const((kind, 'slots'), lambda: slots)]   # (B, 7, S_kind)
+    if max_cone is not None and max_cone < len(slots):
+        sel = torch.sort(feat[:, 0], dim=1, stable=True).indices[:, :max_cone]
+    else:
+        sel = torch.arange(len(slots), device=qvel.device).expand(B, len(slots))
+    feat = torch.gather(feat, 2, sel[:, None, :].expand(B, 7, sel.shape[1]))
+    dist = feat[:, 0]
+    pos = feat[:, 1:4].transpose(1, 2)
+    n = feat[:, 4:7].transpose(1, 2)
+
+    def table(name, make):
+        """A static per-slot table (S_kind, ...) taken at sel."""
+        return dm.const((kind, name), make)[sel]
+
+    masks = table('mask', lambda: con_mask_table(m, lay)[slots])
+    margin = table('margin', lambda: lay.con_margin[slots])
+    solimp = table('solimp', lambda: lay.con_solimp[slots])
+    solref = table('solref', lambda: lay.con_solref[slots])
+    incl = table('incl', lambda: lay.con_incl[slots])
+
+    frame = make_frame(n)                                      # (B, K, 3, 3)
+    jacp, jacr = _point_jacobians_dyn(kin, cdof, pos, masks)
+    dirs = torch.cat([frame @ jacp, frame @ jacr], 2)          # (B, K, 6, nv)
+    vel6 = (dirs @ qvel[:, None, :, None])[..., 0]             # (B, K, 6)
+    x = dist - margin
+    imp = impedance(solimp, x)
+    K, Bd = kb(solref, solimp)
+    return _Culled(sel=sel, dist=dist, dirs=dirs, vel6=vel6, x=x, imp=imp, K=K, Bd=Bd,
+                   rimp=torch.clamp_min(1.0 - imp, 1e-4) / imp, include=dist < incl,
+                   table=table)
+
+
+def pyramidal_rows(lay: ConstraintLayout, max_cone: int | None = None) -> tuple[int, int, int]:
+    """Where `make_efc` puts the pyramidal contact rows among the simple
+    rows: (the first row, rows per slot, slots kept). They follow the
+    friction-loss and limit rows, 2 (condim - 1) rows for each of the
+    `max_cone` nearest slots (every slot without a cap)."""
+    ss = lay.simple_con_slots
+    if not len(ss):
+        return lay.n_fl + lay.n_lim, 0, 0
+    kept = len(ss) if max_cone is None else min(len(ss), max_cone)
+    return lay.n_fl + lay.n_lim, 2 * (int(lay.con_condim[ss[0]]) - 1), kept
+
+
 def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
              contacts: Contacts, cdof: torch.Tensor,
              max_cone: int | None = None) -> Efc:
     """Assemble constraint rows for B envs. With `max_cone`, only the
     max_cone nearest cone slots of each env get Jacobians and rows (exact
-    whenever no more slots than that touch)."""
+    whenever no more slots than that touch); the same cap culls the
+    pyramidal contact slots of a model with cone = pyramidal."""
     m = dm.m
     lay = constraint_layout(m)
     nv = m.nv
     B = qpos.shape[0]
     dtype = qpos.dtype
-    if len(lay.simple_con_slots):
+    ss = lay.simple_con_slots
+    pyr_condims = set(lay.con_condim[ss].tolist())
+    if len(ss) and (len(pyr_condims) != 1 or min(pyr_condims) == 1):
         raise NotImplementedError(
-            'pyramidal-cone and frictionless contact rows are not ported '
-            f'({m.robot}/{m.scene} has {len(lay.simple_con_slots)} such slots)')
+            'the frictionless (condim 1) and mixed-condim contact rows are not ported '
+            f'({m.robot}/{m.scene} has {len(ss)} such slots, condims {sorted(pyr_condims)})')
     J_rows, aref_rows, R_rows, act_rows, fl_rows = [], [], [], [], []
 
     # ---- 1. dof friction loss --------------------------------------------------------
@@ -264,57 +347,56 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
         act_rows.append(dist < margin)
         fl_rows.append(torch.zeros_like(dist))
 
+    # ---- 2b. pyramidal contact rows, culled to the nearest max_cone slots -------------
+    # per slot 2 (condim - 1) one-sided rows, J = dir_0 +- mu_i dir_i, in the
+    # order (i = 0, +), (i = 0, -), (i = 1, +), ...
+    pyr_sel = None
+    if len(ss):
+        _, nrows, _ = pyramidal_rows(lay)
+        p = _culled_slots(dm, kin, cdof, qvel, contacts, ss, 'pyr', max_cone)
+        inv_t = p.table('inv_t', lambda: m.body_invweight0[lay.con_body[ss], 0]
+                        + m.body_invweight0[lay.con_body1[ss], 0])
+        inv_r = p.table('inv_r', lambda: m.body_invweight0[lay.con_body[ss], 1]
+                        + m.body_invweight0[lay.con_body1[ss], 1])
+        mu = p.table('mu', lambda: lay.con_mu[ss])
+        fri_inv = (inv_t, inv_t, inv_r, inv_r, inv_r)
+        rows_J, rows_aref, rows_R = [], [], []
+        for i in range(nrows // 2):
+            mu_i = mu[..., i]
+            diag = 2.0 * (inv_t + mu_i * mu_i * fri_inv[i])
+            for sgn in (1.0, -1.0):
+                rows_J.append(p.dirs[:, :, 0] + sgn * mu_i[..., None] * p.dirs[:, :, 1 + i])
+                vel = p.vel6[..., 0] + sgn * mu_i * p.vel6[..., 1 + i]
+                rows_aref.append(-p.Bd * vel - p.K * p.imp * p.x)
+                rows_R.append(p.rimp * diag)
+        J_rows.append(torch.stack(rows_J, 2).reshape(B, -1, nv))
+        aref_rows.append(torch.stack(rows_aref, 2).reshape(B, -1))
+        R_rows.append(torch.stack(rows_R, 2).reshape(B, -1))
+        act_rows.append(p.include.repeat_interleave(nrows, 1))
+        fl_rows.append(qpos.new_zeros(B, p.sel.shape[1] * nrows))
+        pyr_sel = p.sel
+
     # ---- 3. elliptic cone blocks, culled to the nearest max_cone slots ----------------
     C_all = len(lay.cone_slots)
     if C_all:
         cs = lay.cone_slots
-        feat = contacts.feat[:, :, dm.const('cone_slots', lambda: cs)]  # (B, 7, C_all)
-        if max_cone is not None and max_cone < C_all:
-            # the max_cone nearest slots in ascending distance, the lower
-            # slot first among equal distances, as jax.lax.top_k orders them
-            # (torch.topk promises no order among ties)
-            sel = torch.sort(feat[:, 0], dim=1, stable=True).indices[:, :max_cone]
-        else:
-            sel = torch.arange(C_all, device=qpos.device).expand(B, C_all)
-        K_ = sel.shape[1]
-        feat = torch.gather(feat, 2, sel[:, None, :].expand(B, 7, K_))
-        dist_c = feat[:, 0]
-        pos_c = feat[:, 1:4].transpose(1, 2)
-        n_c = feat[:, 4:7].transpose(1, 2)
+        c = _culled_slots(dm, kin, cdof, qvel, contacts, cs, 'cone', max_cone)
+        sel, dist_c = c.sel, c.dist
+        inv_tc = c.table('inv_t', lambda: m.body_invweight0[lay.con_body[cs], 0]
+                         + m.body_invweight0[lay.con_body1[cs], 0])
+        mu = c.table('mu', lambda: lay.con_mu[cs])
+        dim_mask = c.table('dim_mask', lambda: lay.cone_dim_mask)
+        aref_nc = -c.Bd * c.vel6[..., 0] - c.K * c.imp * c.x
 
-        def table(name, make):
-            """A static per-cone-slot table (C_all, ...) taken at sel."""
-            return dm.const(('cone', name), make)[sel]
-
-        masks_c = table('mask', lambda: con_mask_table(m, lay)[cs])
-        margin_c = table('margin', lambda: lay.con_margin[cs])
-        solimp_c = table('solimp', lambda: lay.con_solimp[cs])
-        solref_c = table('solref', lambda: lay.con_solref[cs])
-        incl_c = table('incl', lambda: lay.con_incl[cs])
-        inv_tc = table('inv_t', lambda: m.body_invweight0[lay.con_body[cs], 0]
-                       + m.body_invweight0[lay.con_body1[cs], 0])
-        mu = table('mu', lambda: lay.con_mu[cs])
-        dim_mask = table('dim_mask', lambda: lay.cone_dim_mask)
-
-        frame_c = make_frame(n_c)                                # (B, K, 3, 3)
-        jacp, jacr = _point_jacobians_dyn(kin, cdof, pos_c, masks_c)
-        dirs_c = torch.cat([frame_c @ jacp, frame_c @ jacr], 2)  # (B, K, 6, nv)
-        vel6_c = (dirs_c @ qvel[:, None, :, None])[..., 0]       # (B, K, 6)
-        x_c = dist_c - margin_c
-        imp_c = impedance(solimp_c, x_c)
-        K_c, B_c = kb(solref_c, solimp_c)
-        rimp_c = torch.clamp_min(1.0 - imp_c, 1e-4) / imp_c
-        aref_nc = -B_c * vel6_c[..., 0] - K_c * imp_c * x_c
-
-        con_J = dirs_c * dim_mask[..., None]
-        aref_f = -B_c[..., None] * vel6_c[..., 1:]               # friction: no K term
+        con_J = c.dirs * dim_mask[..., None]
+        aref_f = -c.Bd[..., None] * c.vel6[..., 1:]              # friction: no K term
         con_aref = torch.cat([aref_nc[..., None], aref_f], -1) * dim_mask
         # R: normal = rimp inv_t; friction i = rimp inv_t (mu0/mu_i)^2 / impratio
-        R_fric = (rimp_c[..., None] * inv_tc[..., None]
+        R_fric = (c.rimp[..., None] * inv_tc[..., None]
                   * (mu[..., :1] / torch.clamp_min(mu, 1e-12)) ** 2 / m.impratio)
-        con_R = torch.cat([(rimp_c * inv_tc)[..., None], R_fric], -1)
+        con_R = torch.cat([(c.rimp * inv_tc)[..., None], R_fric], -1)
         con_R = torch.where(dim_mask > 0, con_R, 1.0)
-        con_active = dist_c < incl_c
+        con_active = c.include
     else:
         z = qpos.new_zeros
         con_J, con_aref, con_R = z(B, 0, 6, nv), z(B, 0, 6), qpos.new_ones(B, 0, 6)
@@ -332,7 +414,8 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
         active = torch.zeros(B, 0, dtype=torch.bool, device=qpos.device)
     return Efc(J=J, aref=aref, R=R, active=active, frictionloss=fl,
                con_J=con_J, con_aref=con_aref, con_R=con_R, con_active=con_active,
-               cone_mu=mu, cone_dim_mask=dim_mask, cone_dist=dist_c, cone_sel=sel)
+               cone_mu=mu, cone_dim_mask=dim_mask, cone_dist=dist_c, cone_sel=sel,
+               pyr_sel=pyr_sel)
 
 
 def scatter_cone_forces(cone_sel: torch.Tensor, f_cone: torch.Tensor, C_all: int):

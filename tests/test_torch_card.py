@@ -19,7 +19,7 @@ from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import constraints as pcon
-from gym_quadruped_tpu_torch.physics import engine, solver
+from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
 
 
@@ -56,23 +56,38 @@ def test_kernel_raises_on_f64(card):
         spd.spd_solve_batched(A, torch.ones(4, 18, dtype=torch.float64, device=card))
 
 
-def _soft_states(card, B, limits=False, robot='spot'):
+def _clearance(dm):
+    """How far the keyframe's nearest contact slot is from touching (0 when
+    it touches)."""
+    kin = kinematics.fk(dm, torch.as_tensor(dm.m.key_qpos[:1], dtype=dm.dtype, device=dm.device))
+    return max(0.0, collision.collide(dm, kin).dist.min().item())
+
+
+def _soft_states(card, B, limits=False, robot='spot', press=0.0):
     """Soft contact states, which f32 Newton solves to convergence: the
-    keyframe lowered up to 5 mm, qvel 0, small torques; with `limits`, the
-    first limited joint (a hip) of every fourth env 0.01 rad past its range."""
+    keyframe lowered by its clearance (0 for spot and go2, whose feet press
+    into the floor), `press` and up to 5 mm more, qvel 0, small torques;
+    with `limits`, the first limited joint (a hip) of every fourth env 0.01
+    rad past its range."""
     dm = load_model(robot, 'flat', device=card)
     m = dm.m
     rng = np.random.RandomState(B)
     qpos = np.tile(m.key_qpos[0], (B, 1))
-    qpos[:, 2] -= rng.uniform(0, 0.005, B)
+    qpos[:, 2] -= _clearance(dm) + press + rng.uniform(0, 0.005, B)
     if limits:
         j = constraint_layout(m).lim_jnts[0]
         qpos[::4, m.jnt_qposadr[j]] = m.jnt_range[j, 1] + 0.01
     ctrl = rng.uniform(-0.5, 0.5, (B, m.nu))
     as_card = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)
     fwd = engine.forward(dm, as_card(qpos), torch.zeros(B, m.nv, device=card), as_card(ctrl))
-    assert bool(fwd.efc.con_active.any())
+    assert _touches(fwd.efc, m)
     return fwd.M, fwd.qacc_smooth, fwd.efc
+
+
+def _touches(efc, m):
+    """Whether a contact is active: a cone block or a pyramidal row."""
+    first, _, _ = pcon.pyramidal_rows(constraint_layout(m))
+    return bool(efc.con_active.any() or efc.active[:, first:].any())
 
 
 def _check_newton(M, a_smooth, efc, form, iterations=10, envs_bar=0.02):
@@ -119,7 +134,8 @@ def test_newton_kernel_without_rows(card, form):
     # ns = C = 0 still launches the kernel, which writes a_smooth
     M, a_smooth, efc = _soft_states(card, 4097)
     efc = dataclasses.replace(efc, **{f.name: getattr(efc, f.name)[:, :0].contiguous()
-                                      for f in dataclasses.fields(efc)})
+                                      for f in dataclasses.fields(efc)
+                                      if getattr(efc, f.name) is not None})
     _check_newton(M, a_smooth, efc, form)
     qacc = getattr(nf, form)(M, a_smooth, efc, warmstart=torch.zeros_like(a_smooth))[0]
     assert torch.equal(qacc, a_smooth)
@@ -190,8 +206,8 @@ def test_newton_kernel_residency(card):
     assert blocks * envs >= 16, (blocks, envs, smem)
 
 
-def _card_against_cpu(card, robot):
-    B, T = 64, 20
+def _card_against_cpu(card, robot, T=20):
+    B = 64
     dm = load_model(robot, 'flat', device=card)
     dm64 = load_model(robot, 'flat', device='cpu', dtype=torch.float64)
     nv = dm.m.nv
@@ -212,8 +228,8 @@ def _card_against_cpu(card, robot):
     # solve in one launch of the fused kernel
     assert spd.launches == 2 * T
     assert nf.launches == T
-    assert bool(f.efc.con_active.any())
-    # f32 against f64 over 20 steps of 2 ms: far inside the 1e-3 qpos bar
+    assert _touches(f.efc, dm.m)
+    # f32 against f64 over 20-40 steps of 2 ms: far inside the 1e-3 qpos bar
     err = (q.double().cpu() - q64).abs().max().item()
     assert err < 1e-3, err
 
@@ -226,3 +242,55 @@ def test_step_on_card_matches_cpu_f64(card):
 @pytest.mark.cuda
 def test_step_on_card_matches_cpu_f64_go2(card):
     _card_against_cpu(card, 'go2')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('robot', ['aliengo', 'b2'])
+def test_step_on_card_matches_cpu_f64_pyramidal(card, robot):
+    # the feet start 12.7 mm (aliengo) and 17.9 mm (b2) above the floor and
+    # touch it after ~25 and ~30 steps: 40 steps reach the pyramidal rows
+    _card_against_cpu(card, robot, T=40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ns', [148, 160])
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_pyramidal_sizes(card, ns, form):
+    # aliengo's ns (148) and the kernel's cap (160), C = 0: about 70% of the
+    # rows active, so every 32-row word of the active-row ballot has some;
+    # odd envs' dense rows take the dense J' diag(cw) J, as pyramidal rows do
+    M, a_smooth, efc = synthetic_rows(4097, nv=18, ns=ns, C=0, device=card)
+    for w in range(0, ns, 32):
+        assert bool(efc.active[:, w:w + 32].any(0).all()), w
+    _check_newton(M, a_smooth, efc, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_matches_plain_aliengo(card, form):
+    # aliengo's rows (ns 148, C 0), the keyframe pressed 3 cm past its
+    # clearance: the body's boxes touch too, and active pyramidal rows reach
+    # past row 64
+    M, a_smooth, efc = _soft_states(card, 4097, robot='aliengo', press=0.03)
+    assert efc.J.shape[1] == 148 and efc.con_J.shape[1] == 0
+    assert int(efc.active.nonzero()[:, 1].max()) >= 64
+    _check_newton(M, a_smooth, efc, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
+def test_newton_kernel_matches_plain_b2(card, form):
+    # b2's rows (ns 140: 12 limit rows, then 32 culled slots of 4 pyramidal
+    # rows), its four sphere feet on the floor
+    M, a_smooth, efc = _soft_states(card, 4097, robot='b2')
+    assert efc.J.shape[1] == 140 and efc.con_J.shape[1] == 0
+    _check_newton(M, a_smooth, efc, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ns', [140, 148, 158])
+def test_newton_kernel_residency_pyramidal(card, ns):
+    # b2, aliengo and hyqreal2 (C = 0): ~20-21 KB of shared memory per env,
+    # so at least 5 blocks of 2 envs per SM
+    blocks, envs, smem = nf.occupancy(18, ns, 0)
+    assert blocks * envs >= 10, (blocks, envs, smem)

@@ -62,7 +62,8 @@ def _spot_rows():
     a_smooth = np.stack([np.asarray(o[7]) for o in outs])
     jefc = jax.tree_util.tree_map(lambda *x: np.stack(x), *[o[9] for o in outs])
     efc = pcon.Efc(**{k.name: torch.as_tensor(np.asarray(getattr(jefc, k.name)))
-                      for k in dataclasses.fields(pcon.Efc)})
+                      for k in dataclasses.fields(pcon.Efc)
+                      if getattr(jefc, k.name) is not None})
     assert bool(efc.con_active.any())
     return jm, M, a_smooth, jefc, efc
 
@@ -80,7 +81,8 @@ def _go2_rows():
     assert efc.J.shape[1:] == (24, 18) and efc.con_J.shape[1] == 32
     dims = efc.cone_dim_mask.sum(-1)[efc.con_active]
     assert bool((dims == 3).any()) and bool((dims == 6).any())
-    jefc = jcon.Efc(**{k.name: getattr(efc, k.name).numpy() for k in dataclasses.fields(pcon.Efc)})
+    jefc = jcon.Efc(**{k.name: getattr(efc, k.name).numpy() for k in dataclasses.fields(pcon.Efc)
+                       if getattr(efc, k.name) is not None})
     return jm, fwd.M.numpy(), fwd.qacc_smooth.numpy(), jefc, efc
 
 
@@ -229,13 +231,13 @@ def _meta_rows(nv=18, ns=24, C=10, dtype=torch.float32):
 
 
 @pytest.mark.parametrize('case,match', [
-    ('f64', 'float32'), ('nv33', 'nv <= 32'), ('C33', 'C <= 32'), ('ns65', 'ns <= 64'),
+    ('f64', 'float32'), ('nv33', 'nv <= 32'), ('C33', 'C <= 32'), ('ns161', 'ns <= 160'),
     ('strided', 'contiguous'), ('mixed', 'one device'), ('shape', 'expected warmstart'),
     ('iterations_out', 'int32')])
 def test_kernel_path_raises_on_inputs_it_does_not_take(case, match):
     # A tensor off the CPU takes the kernel path, which checks its inputs
     # before it builds or launches anything: meta tensors reach it here.
-    sizes = {'nv33': {'nv': 33}, 'C33': {'C': 33}, 'ns65': {'ns': 65}}.get(case, {})
+    sizes = {'nv33': {'nv': 33}, 'C33': {'C': 33}, 'ns161': {'ns': 161}}.get(case, {})
     dtype = torch.float64 if case == 'f64' else torch.float32
     M, a_smooth, efc = _meta_rows(dtype=dtype, **sizes)
     kwargs = {}
