@@ -79,9 +79,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (the feet touch after ~30 steps);
  25-29. the same on hyqreal2/random_boxes (6,173 slots, 400 world boxes;
      ns 158), BASELINE cfg4's scene: phase 25 on the soft states alone, 20
-     steps at B=4096, 4 envs stepped 20 times on the CPU from step 0.
+     steps at B=4096, 4 envs stepped 20 times on the CPU from step 0;
+ 30. the env layer's main path: `QuadrupedEnv('go2', scene='flat', ...)`
+     with a forward command and per-env friction U(0.5, 1.5), a random
+     reset of B=4096 envs (the rounds of its lift out of contact), then 200
+     `env.step` in f32 with seeded U(-2, 2) torques and the default
+     observables: env-steps/s beside phase 11's bare step in this call, peak
+     memory, exactly 2 SPD and 1 Newton launch per step (counts set to 0
+     just before the steps, read just after), every state and observable
+     finite, and one env.step reporting no more host synchronisations than
+     its step_batched alone;
+ 31. 20 steps with all 31 observables: each finite and of its obs_dim; the
+     share of feet in contact and the culled contacts; the observables'
+     device and host ms;
+ 32. card against CPU: 16 envs of the card's state at step 100, moved along
+     the floor to the origin, stepped 20 times through env.step on the card
+     and in f64 on the CPU at a Newton cap of 30 (as phase 10), qpos within
+     1e-3; printed beside it, at the step's cap of 10, the same from the
+     moved states and from the main path's own at their spawn positions (up
+     to 10 km out, where f32 resolves 0.5-1 mm);
+ 33. quarantine: NaN in qvel of 3 envs, one `quarantine_step`: exactly those
+     reset, terminated and counted, the others as a plain env.step; its
+     time against a plain env.step;
+ 34. the hyqreal2/random_boxes env (BASELINE cfg4) with a forward+rotate
+     command: random reset, 20 steps at B=4096, env-steps/s, lift rounds,
+     peak memory, every state finite.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
-solve on the last step's inputs, on the envs both converged.
+solve on the last step's inputs, on the envs both converged, and print
+both f32 solves' distance there from an eager f64 solve.
 Next to each time, rate and memory size the line gives the card's name
 and power limit. Then come the seconds each phase took, the kernels' JSON
 record on the line before the last, and {"ok": true, "device": {...}} last.
@@ -95,6 +120,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -102,6 +128,9 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from gym_quadruped_tpu_torch.env import ALL_OBS, QuadrupedEnv
+from gym_quadruped_tpu_torch.env import observables as obslib
+from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step
 from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
@@ -596,7 +625,8 @@ def main_path(dm, phase, steps, windows, n_cpu):
                              f'{name}, got {sorted(set(per_step))}')
     return {'ctrls': ctrls, 'states': states, 'acts': acts, 'launches': launches,
             'last': (fwd.M, fwd.qacc_smooth, efc, warm_in),   # the last step's Newton inputs
-            'state': (qpos, qvel, warm), 'windows': windows, 'n_cpu': n_cpu}
+            'state': (qpos, qvel, warm), 'windows': windows, 'n_cpu': n_cpu,
+            'steps_per_s': steps / wall}
 
 
 def card_against_cpu(dm, run, phase):
@@ -656,6 +686,15 @@ def newton_timing(last, phase):
     done = (it < cap) & (it_ref < cap)
     n_done = int(done.sum())
     err_done = rel_err(outs[0][done], ref[0][done]) if n_done else float('nan')
+    # which of the two f32 solves is nearer the solution: an eager f64 solve
+    # at its own tolerance (1e-10) with a cap of 30, its SPD solves plain
+    it_64 = torch.zeros_like(it)
+    with mock.patch.object(solver, 'spd_solve_batched', spd.unrolled_chol_solve_torch):
+        ref64 = solver.solve(M.double(), a_s.double(), as_f64(efc), w.double(), 30,
+                             iterations_out=it_64)[0]
+    done64 = done & (it_64 < 30)
+    kernel_f64 = rel_err(outs[0][done64], ref64[done64]) if bool(done64.any()) else float('nan')
+    eager_f64 = rel_err(ref[0][done64], ref64[done64]) if bool(done64.any()) else float('nan')
     rows = efc.active.nonzero()[:, 1]
     newton_ms = median_ms(lambda: newton_c(*args))
     newton_bt_ms = median_ms(lambda: newton_c(*args_bt))
@@ -681,6 +720,10 @@ def newton_timing(last, phase):
                f'the {n_done} envs both converged {err_done:.3e}, on every env '
                f'{rel_err(outs[0], ref[0]):.3e} (of 1 + max|qacc|), envs whose iteration count '
                f'differs {int((it != it_ref).sum())}; on {smi()}')
+    log(phase, f'the same {n_done} envs against an eager f64 solve (cap 30, tolerance 1e-10; '
+               f'{int(done64.sum())} of them converged in f64): kernel {kernel_f64:.3e}, eager '
+               f'f32 {eager_f64:.3e} of 1 + max|qacc|: the '
+               f'{"kernel" if kernel_f64 < eager_f64 else "eager f32 solve"} is nearer f64')
     if not err_done < NEWTON_BAR:
         raise AssertionError(f'Newton kernel off by {err_done} from the eager solve on the '
                              f'{n_done} envs of the last main-path step both converged')
@@ -701,7 +744,8 @@ def newton_timing(last, phase):
                f'({bt_act_by}: {bt_act_flop / 1e9:.3f} GFLOP) = {newton_bt_ms / bt_act_ms:.1f}x, '
                f'dense bound {bt_bound_ms:.5f} ms ({bt_bound_by}: {bt_flop / 1e9:.3f} GFLOP)')
     return {'ms': newton_ms, 'plain_ms': eager_ms, 'bound_ms': newton_bound_ms,
-            'bound_by': newton_bound_by, 'last_step_rel_err': err_done}
+            'bound_by': newton_bound_by, 'last_step_rel_err': err_done,
+            'last_step_kernel_vs_f64': kernel_f64, 'last_step_eager_vs_f64': eager_f64}
 
 
 def device_profile(dm, run, phase, n_steps=3):
@@ -792,6 +836,271 @@ def narrow_phase_groups(dm, run, phase):
         log(phase, f'  narrow phase {collision._GEOM_NAMES[t1]}-{collision._GEOM_NAMES[t2]} '
                    f'({args[2].shape[1]} pairs): stream {start.elapsed_time(end) / 3:.3f} ms, host '
                    f'{host_ms:.3f} ms, {ops.count} tensor operations')
+
+
+def sync_count(fn):
+    """The host synchronisations that CUDA's sync debug mode reports in a
+    second call of `fn()`, after one to warm up (kernels launched through
+    ctypes are not seen), and the first message."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    syncs = [str(w.message) for w in caught if 'synchroniz' in str(w.message)]
+    return len(syncs), (syncs[0][:200] if syncs else None)
+
+
+def host_ms(fn, repeats=3):
+    """Median host ms of `fn()` followed by a synchronise."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def all_finite(state, obs):
+    """A device bool: every float of the state and the observations finite."""
+    ok = torch.ones((), dtype=torch.bool, device='cuda')
+    for x in [getattr(state, f.name) for f in dataclasses.fields(state)] + list(obs.values()):
+        if x.is_floating_point():
+            ok = ok & torch.isfinite(x).all()
+    return ok
+
+
+def env_main_path(bare_steps_per_s, phase=30):
+    """Phase 30: the env layer's main path, go2/flat at B=4096 in f32
+    through `QuadrupedEnv(...).reset` and `.step`, per-env friction: a random
+    reset, then STEPS steps with seeded U(-2, 2) torques and the default
+    observables, the launch counts set to 0 just before the steps and read
+    just after (exactly 2 SPD and 1 Newton launch per step), every state
+    and observable finite, env-steps/s beside the bare step's of phase 11
+    in this call, peak device memory, host synchronisations of one env.step
+    against one step_batched. Keeps the first N_CPU_ENVS envs' state at step
+    100 and after CPU_STEPS more, for phase 32."""
+    env = QuadrupedEnv('go2', scene='flat', base_vel_command_type='forward',
+                       ref_base_lin_vel=(0.0, 1.0), ground_friction_coeff=(0.5, 1.5))
+    dm = env.model
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    state, obs = env.reset(gen, BATCH)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    mu = state.geom_friction[:, dm.m.feet_geom_id[0], 0]
+    log(phase, f'go2/flat env reset B={BATCH}: {reset_s:.3f} s, {env.lift_rounds} rounds of the '
+               f'lift out of contact, launches spd_solve {spd.launches}, newton_fused '
+               f'{nf.launches}; feet friction per env in [{mu.min().item():.3f}, '
+               f'{mu.max().item():.3f}]; on {smi()}')
+    actions = torch.rand(STEPS, BATCH, dm.m.nu, generator=gen, device='cuda') * 4.0 - 2.0
+    finite = all_finite(state, obs)
+    kept = {}
+    per_step = []
+    torch.cuda.synchronize()
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    for t in range(STEPS):
+        if t in (100, 100 + CPU_STEPS):
+            kept[t] = state.map(lambda x: x[:N_CPU_ENVS].clone())
+        before = spd.launches, nf.launches
+        state, obs, reward, term, trunc, info = env.step(state, actions[t])
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        finite &= all_finite(state, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    rate = STEPS / wall
+    log(phase, f'go2/flat env.step B={BATCH} f32: {STEPS} steps in {wall:.3f} s = {rate:.2f} '
+               f'steps/s = {BATCH * rate:.1f} env-steps/s; the bare step_batched of phase 11 '
+               f'in this call {bare_steps_per_s:.2f} steps/s = {BATCH * bare_steps_per_s:.1f} '
+               f'env-steps/s (env/bare {rate / bare_steps_per_s:.3f}); peak device memory from '
+               f'the reset on {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {smi()}')
+    log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
+               f'{launches["newton_fused"]} (per step {sorted(set(per_step))}); terminated at the '
+               f'last step {int(term.sum())} of {BATCH}; mean base height '
+               f'{state.qpos[:, 2].mean().item():.4f}')
+    if not bool(finite):
+        raise AssertionError('a state or observation of the go2/flat env path is not finite')
+    if any(k != (2, 1) for k in per_step):
+        raise AssertionError(f'expected 2 spd_solve and 1 newton_fused launch per env.step, got '
+                             f'{sorted(set(per_step))}')
+    action = actions[-1]
+    ctrl_syncs = sync_count(lambda: engine.step_batched(dm, state.qpos, state.qvel, action,
+                                                        warmstart=state.qacc))
+    env_syncs = sync_count(lambda: env.step(state, action))
+    log(phase, f'host synchronisations reported per call: env.step {env_syncs[0]}, its '
+               f'step_batched alone {ctrl_syncs[0]} (first: {env_syncs[1] or ctrl_syncs[1]})')
+    if env_syncs[0] != ctrl_syncs[0]:
+        raise AssertionError(f'env.step syncs {env_syncs} times, its step_batched {ctrl_syncs}')
+    return {'env': env, 'gen': gen, 'state': state, 'actions': actions, 'kept': kept,
+            'launches': launches}
+
+
+def env_all_obs(run, phase=31):
+    """Phase 31: CPU_STEPS steps of the go2/flat env with all 31 observables:
+    each finite and of its obs_dim; the share of feet in contact, the culled
+    contacts; host and device ms of the observables alone (the default five
+    and all 31) on one Forward."""
+    env = run['env']
+    dm = env.model
+    env31 = QuadrupedEnv('go2', state_obs_names=ALL_OBS, base_vel_command_type='forward',
+                         ref_base_lin_vel=(0.0, 1.0), ground_friction_coeff=(0.5, 1.5),
+                         model=dm)
+    state = run['state']
+    dims = env31.observation_space_dims()
+    ok = torch.ones((), dtype=torch.bool, device='cuda')
+    touch, culled = [], []
+    for t in range(CPU_STEPS):
+        state, obs, reward, term, trunc, info = env31.step(state, run['actions'][t])
+        for name, v in obs.items():
+            if v.shape != (BATCH, dims[name]):
+                raise AssertionError(f'observable {name}: shape {tuple(v.shape)}, '
+                                     f'expected {(BATCH, dims[name])}')
+            ok &= torch.isfinite(v).all()
+        touch.append(obs['contact_state'])
+        culled.append(info['culled_contacts'])
+    if not bool(ok):
+        raise AssertionError('an observable of the go2/flat env is not finite')
+    culled = torch.stack(culled)
+    log(phase, f'go2/flat, all {len(ALL_OBS)} observables over {CPU_STEPS} steps: finite, each '
+               f'of its obs_dim; feet in contact {torch.stack(touch).mean().item():.4f} of the '
+               f'feet; culled contacts (touching cone slots past the cap of 32) '
+               f'{int(culled.sum())} in all, at most {int(culled.max())} in an env and step')
+    _, _, fwd = engine.step_batched(dm, state.qpos, state.qvel, run['actions'][0],
+                                    warmstart=state.qacc)
+    for names in (env.state_obs_names, ALL_OBS):
+        call = lambda: obslib.compute_obs(dm, names, state.qpos, state.qvel, state.ctrl, fwd,
+                                          state.ref_base_lin_vel_H, state.ref_base_ang_yaw_dot)
+        call()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        call()
+        enqueue = (time.perf_counter() - h0) * 1e3
+        log(phase, f'observables ({len(names)}): device {median_ms(call, launches=5, repeats=3):.3f} '
+                   f'ms per call on the stream, host {enqueue:.3f} ms to enqueue; on {smi()}')
+
+
+def env_card_against_cpu(run, phase=32, cap=GO2_AGREEMENT_ITERATIONS):
+    """Phase 32: card against CPU. The first N_CPU_ENVS envs of the card's
+    state at step 100, moved along the floor to x = y = 0 (the flat floor is
+    the same everywhere), stepped CPU_STEPS times through env.step on the
+    card (f32) and on the CPU (f64) with the main path's actions and a
+    Newton cap of `cap`: every env's qpos within 1e-3. Two readings beside
+    it, at the step's cap of 10: from the same moved states, where an f32
+    solve stopped unconverged at the cap (phase 10) carries its error on;
+    and the main path's own states at their spawn positions, up to 10 km
+    out (the flat scene's terrain limits), where f32 resolves a position to
+    0.5-1 mm."""
+    torch.set_num_threads(1)
+    env, actions = run['env'], run['actions']
+    cfg = dict(base_vel_command_type='forward', ref_base_lin_vel=(0.0, 1.0),
+               ground_friction_coeff=(0.5, 1.5))
+    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
+    envs = {(dev, it): QuadrupedEnv('go2', model=dm, solver_iterations=it, **cfg)
+            for dev, dm in (('card', env.model), ('cpu', dm64)) for it in (cap, 10)}
+    start = run['kept'][100]
+    centred = start.map(torch.clone)
+    centred.qpos[:, :2] = 0.0
+    runs = {(dev, it, where): s.to('cpu', torch.float64) if dev == 'cpu' else s
+            for (dev, it) in envs for where, s in (('origin', centred), ('spawn', start))
+            if (dev, where) != ('card', 'spawn') and (it, where) != (cap, 'spawn')}
+    for t in range(100, 100 + CPU_STEPS):
+        a = actions[t, :N_CPU_ENVS]
+        for (dev, it, where), s in runs.items():
+            runs[dev, it, where] = envs[dev, it].step(s, a if dev == 'card' else a.double().cpu())[0]
+    runs['card', 10, 'spawn'] = run['kept'][100 + CPU_STEPS]     # the main path's own
+
+    def err(it, where):
+        diff = (runs['card', it, where].qpos.double().cpu() - runs['cpu', it, where].qpos).abs()
+        per_env = diff.amax(-1)
+        return per_env.max().item(), int((per_env >= 1e-3).sum())
+
+    gate, at10, spawn = err(cap, 'origin'), err(10, 'origin'), err(10, 'spawn')
+    dist = start.qpos[:, :2].abs().amax(-1)
+    log(phase, f'go2/flat env, {N_CPU_ENVS} envs, steps 100..{100 + CPU_STEPS}, card f32 vs CPU '
+               f'f64 max |qpos diff| (envs at 1e-3 or more): moved to the origin, Newton cap '
+               f'{cap} {gate[0]:.3e} ({gate[1]}); the same at the cap of 10 {at10[0]:.3e} '
+               f'({at10[1]}); the main path\'s own states at their spawn positions (|x|, |y| up '
+               f'to {dist.max().item():.1f} m, the nearest {dist.min().item():.1f} m), cap 10 '
+               f'{spawn[0]:.3e} ({spawn[1]})')
+    if not gate[0] < 1e-3:
+        raise AssertionError(f'go2/flat env: card and CPU trajectories differ by {gate[0]}')
+
+
+def env_quarantine(run, phase=33):
+    """Phase 33: NaN in qvel of a few envs, one quarantine_step: exactly
+    those reset (step 0), marked terminated and counted, the others as a
+    plain env.step; its time against a plain env.step, healthy and not."""
+    env, gen, state, action = run['env'], run['gen'], run['state'], run['actions'][0]
+    poisoned = [5, BATCH // 4, BATCH - 1]
+    qvel = state.qvel.clone()
+    qvel[poisoned, 4] = float('nan')
+    bad = dataclasses.replace(state, qvel=qvel)
+    out = quarantine_step(env, bad, action, gen)
+    plain = env.step(bad, action)
+    reset = (out[0].step_num == 0).nonzero()[:, 0].tolist()
+    term = out[3]
+    healthy = torch.ones(BATCH, dtype=torch.bool, device='cuda')
+    healthy[poisoned] = False
+    diff = (out[0].qpos[healthy] - plain[0].qpos[healthy]).abs().max().item()
+    log(phase, f'go2/flat quarantine of envs {poisoned}: reset {reset}, quarantined '
+               f'{int(out[5]["quarantined"])}, terminated {bool(term[poisoned].all())}, '
+               f'every state finite {not bool(bad_state_mask(out[0]).any())}; the other envs '
+               f'against a plain env.step: max |qpos diff| {diff:.3e}')
+    if reset != poisoned or int(out[5]['quarantined']) != len(poisoned) \
+            or not bool(term[poisoned].all()) or bool(bad_state_mask(out[0]).any()) \
+            or not diff < 1e-6:
+        raise AssertionError('quarantine_step did not reset exactly the poisoned envs')
+    t_bad = host_ms(lambda: quarantine_step(env, bad, action, gen))
+    t_ok = host_ms(lambda: quarantine_step(env, state, action, gen))
+    t_plain = host_ms(lambda: env.step(state, action))
+    log(phase, f'host ms per call (synchronised, median of 3): quarantine_step with 3 poisoned '
+               f'envs {t_bad:.1f}, healthy {t_ok:.1f}, plain env.step {t_plain:.1f}; on {smi()}')
+
+
+def env_random_boxes(phase=34, steps=20):
+    """Phase 34: the hyqreal2/random_boxes env (BASELINE cfg4) at B=4096 with a
+    forward+rotate command: random reset (lift rounds), `steps` steps with
+    seeded U(-2, 2) torques, env-steps/s, launches, peak memory, finite."""
+    env = QuadrupedEnv('hyqreal2', scene='random_boxes', base_vel_command_type='forward+rotate',
+                       ref_base_lin_vel=(0.0, 1.0), ref_base_ang_vel=(-0.5, 0.5))
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, obs = env.reset(gen, BATCH)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    actions = torch.rand(steps, BATCH, env.model.m.nu, generator=gen, device='cuda') * 4 - 2
+    finite = all_finite(state, obs)
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        state, obs, reward, term, trunc, info = env.step(state, actions[t])
+        finite &= all_finite(state, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(phase, f'hyqreal2/random_boxes env B={BATCH}: reset {reset_s:.3f} s ({env.lift_rounds} '
+               f'lift rounds); {steps} env.steps in {wall:.3f} s = {steps / wall:.3f} steps/s = '
+               f'{BATCH * steps / wall:.1f} env-steps/s; launches spd_solve {spd.launches}, '
+               f'newton_fused {nf.launches}; yaw command in [{state.ref_base_ang_yaw_dot.min().item():.3f}, '
+               f'{state.ref_base_ang_yaw_dot.max().item():.3f}]; terminated at the last step '
+               f'{int(term.sum())}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} '
+               f'GiB; on {smi()}')
+    if not bool(finite):
+        raise AssertionError('a state or observation of the hyqreal2/random_boxes env is not finite')
+    if (spd.launches, nf.launches) != (2 * steps, steps):
+        raise AssertionError(f'hyqreal2/random_boxes env: launches {spd.launches}, {nf.launches}')
 
 
 # The main paths, five phases each from phase 5 on (Newton agreement, main
@@ -885,6 +1194,7 @@ def main():
     # timings, profile and narrow phase by group
     spd_fields = {}
     newton_fields = {}
+    rates = {}
     for i, (robot, scene, steps, windows, n_cpu, agreement) in enumerate(SCENES):
         phase = 5 + 5 * i
         dm = load_model(robot, scene, device='cuda', dtype=torch.float32)
@@ -902,12 +1212,24 @@ def main():
         newton = newton_timing(run['last'], phase + 3)
         device_profile(dm, run, phase + 4)
         narrow_phase_groups(dm, run, phase + 4)
+        rates[robot] = run['steps_per_s']
         prefix = f'{robot}_' if i else ''    # spot's fields are the kernels' own
         spd_fields[f'{prefix}launches'] = run['launches']['spd_solve']
         newton_fields.update({f'{prefix}launches': run['launches']['newton_fused'],
                               f'{prefix}max_abs_err': newton_abs_err,
                               **{prefix + k: v for k, v in newton.items()}})
         del run
+
+    # ---- 30-34. the env layer: go2/flat, all observables, card against CPU,
+    # quarantine; hyqreal2/random_boxes
+    run = env_main_path(rates['go2'])
+    env_all_obs(run)
+    env_card_against_cpu(run)
+    env_quarantine(run)
+    spd_fields['env_launches'] = run['launches']['spd_solve']
+    newton_fields['env_launches'] = run['launches']['newton_fused']
+    del run
+    env_random_boxes()
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')
@@ -920,7 +1242,7 @@ def main():
         **spd_fields}, {
         'name': 'newton_fused', 'route': 'cuda',
         'source': 'gym_quadruped_tpu_torch/csrc/newton_fused.cu',
-        'replaces': 'scripts/experimental/newton_solve.py:124, '
+        'replaces': 'scripts/experimental/newton_solve.py:144, '
                     'scripts/experimental/newton_bt.py:272',
         'library_ms': None, **newton_fields}]}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of gym_quadruped_tpu's batched physics step.
+"""PyTorch/CUDA port of gym_quadruped_tpu's batched physics step and env layer.
 
-Entry point: `physics.engine.step_batched(model, qpos, qvel, ctrl)` on a model
-from `models.model.load_model(robot, scene, device=...)`. Every tensor carries
-a leading env-batch axis. Two hand-written CUDA kernels run on the card, each
+Entry points: `env.QuadrupedEnv(robot, scene, ...)`, whose `reset(generator,
+B)` and `step(state, action)` run B envs, and below it
+`physics.engine.step_batched(model, qpos, qvel, ctrl)` on a model from
+`models.model.load_model(robot, scene, device=...)`. Every tensor carries a
+leading env-batch axis. Two hand-written CUDA kernels run on the card, each
 with its plain PyTorch version on the CPU: the batched tiny-SPD solve
 (`csrc/spd_solve.cu`) and the fused Newton contact solve
 (`csrc/newton_fused.cu`).

@@ -217,6 +217,30 @@ def _point_jacobians_dyn(kin: Kin, cdof: torch.Tensor, pos: torch.Tensor,
     return jacp, jacr
 
 
+def _point_jacobians(dm: DeviceModel, kin: Kin, cdof: torch.Tensor, pos: torch.Tensor,
+                     body_ids) -> tuple[torch.Tensor, torch.Tensor]:
+    """Translational and rotational Jacobians (B, k, 3, nv) of k points per
+    env (pos (B, k, 3)), the i-th on the static body body_ids[i]."""
+    ids = tuple(int(b) for b in body_ids)
+    masks = dm.const(('point_masks', ids),
+                     lambda: np.stack([ancestor_dof_mask(dm.m, b) for b in ids]))
+    return _point_jacobians_dyn(kin, cdof, pos, masks.expand(pos.shape[0], -1, -1))
+
+
+def runtime_con_mu(dm: DeviceModel, geom_friction: torch.Tensor) -> torch.Tensor:
+    """Per-slot friction (B, S, 5) from per-env geom friction tables (B,
+    ngeom, 3), by MuJoCo's rule for a pair (the geom of higher priority
+    wins, else the elementwise max), so that per-env friction randomisation
+    is a gather."""
+    lay = constraint_layout(dm.m)
+    f1 = geom_friction[:, dm.const('con_geom1', lambda: lay.con_geom1)]   # (B, S, 3)
+    f2 = geom_friction[:, dm.const('con_geom2', lambda: lay.con_geom2)]
+    prio = dm.const('con_prio', lambda: lay.con_prio)[:, None]
+    fri3 = torch.where(prio < 0, f1, torch.where(prio > 0, f2, torch.maximum(f1, f2)))
+    # (sliding, sliding, torsional, rolling, rolling)
+    return fri3[..., dm.const('mu_columns', lambda: np.array([0, 0, 1, 2, 2]))]
+
+
 @dataclasses.dataclass
 class _Culled:
     """The contact slots of one kind (cone or pyramidal), culled to the
@@ -234,6 +258,17 @@ class _Culled:
     rimp: torch.Tensor     # max(1 - imp, 1e-4) / imp
     include: torch.Tensor  # (B, K) bool, dist < inclusion threshold
     table: object          # table(name, make): a static (S_kind, ...) table at sel
+    slots: torch.Tensor    # (S_kind,) the kind's slots on the device
+
+
+def _mu_at(c: _Culled, con_mu, static: np.ndarray) -> torch.Tensor:
+    """(B, K, 5) friction of the culled slots: the model's (`static`, the
+    kind's rows of the layout's con_mu) without `con_mu`, else con_mu (S, 5)
+    or (B, S, 5) gathered at them."""
+    if con_mu is None:
+        return c.table('mu', lambda: static)
+    mu = con_mu.to(c.dist.dtype).expand(c.sel.shape[0], -1, -1)[:, c.slots]
+    return torch.gather(mu, 1, c.sel[..., None].expand(-1, -1, 5))
 
 
 def _culled_slots(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, slots,
@@ -244,7 +279,8 @@ def _culled_slots(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, slo
     m = dm.m
     lay = constraint_layout(m)
     B = qvel.shape[0]
-    feat = contacts.feat[:, :, dm.const((kind, 'slots'), lambda: slots)]   # (B, 7, S_kind)
+    slots_t = dm.const((kind, 'slots'), lambda: slots)
+    feat = contacts.feat[:, :, slots_t]                        # (B, 7, S_kind)
     if max_cone is not None and max_cone < len(slots):
         sel = torch.sort(feat[:, 0], dim=1, stable=True).indices[:, :max_cone]
     else:
@@ -273,7 +309,7 @@ def _culled_slots(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, slo
     K, Bd = kb(solref, solimp)
     return _Culled(sel=sel, dist=dist, dirs=dirs, vel6=vel6, x=x, imp=imp, K=K, Bd=Bd,
                    rimp=torch.clamp_min(1.0 - imp, 1e-4) / imp, include=dist < incl,
-                   table=table)
+                   table=table, slots=slots_t)
 
 
 def pyramidal_rows(lay: ConstraintLayout, max_cone: int | None = None) -> tuple[int, int, int]:
@@ -289,12 +325,14 @@ def pyramidal_rows(lay: ConstraintLayout, max_cone: int | None = None) -> tuple[
 
 
 def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
-             contacts: Contacts, cdof: torch.Tensor,
+             contacts: Contacts, cdof: torch.Tensor, con_mu: torch.Tensor | None = None,
              max_cone: int | None = None) -> Efc:
     """Assemble constraint rows for B envs. With `max_cone`, only the
     max_cone nearest cone slots of each env get Jacobians and rows (exact
     whenever no more slots than that touch); the same cap culls the
-    pyramidal contact slots of a model with cone = pyramidal."""
+    pyramidal contact slots of a model with cone = pyramidal. `con_mu`, (S,
+    5) or per env (B, S, 5) (`runtime_con_mu`), replaces the model's
+    per-slot friction in both kinds of rows."""
     m = dm.m
     lay = constraint_layout(m)
     nv = m.nv
@@ -358,7 +396,7 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
                         + m.body_invweight0[lay.con_body1[ss], 0])
         inv_r = p.table('inv_r', lambda: m.body_invweight0[lay.con_body[ss], 1]
                         + m.body_invweight0[lay.con_body1[ss], 1])
-        mu = p.table('mu', lambda: lay.con_mu[ss])
+        mu = _mu_at(p, con_mu, lay.con_mu[ss])
         fri_inv = (inv_t, inv_t, inv_r, inv_r, inv_r)
         rows_J, rows_aref, rows_R = [], [], []
         for i in range(nrows // 2):
@@ -384,7 +422,7 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
         sel, dist_c = c.sel, c.dist
         inv_tc = c.table('inv_t', lambda: m.body_invweight0[lay.con_body[cs], 0]
                          + m.body_invweight0[lay.con_body1[cs], 0])
-        mu = c.table('mu', lambda: lay.con_mu[cs])
+        mu = _mu_at(c, con_mu, lay.con_mu[cs])
         dim_mask = c.table('dim_mask', lambda: lay.cone_dim_mask)
         aref_nc = -c.Bd * c.vel6[..., 0] - c.K * c.imp * c.x
 

@@ -63,10 +63,14 @@ class Forward:
 
 def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
             solver_iterations: int = DEFAULT_SOLVER_ITERS,
-            max_contacts: int = MAX_CONE_CONTACTS) -> Forward:
-    """mj_forward for B envs: qpos (B, nq), qvel (B, nv), ctrl (B, nu).
-    Its stages are named ranges for torch.profiler: smooth, contacts (itself
-    narrow_phase, then assembly), newton."""
+            max_contacts: int = MAX_CONE_CONTACTS, qfrc_applied=None,
+            con_mu=None) -> Forward:
+    """mj_forward for B envs: qpos (B, nq), qvel (B, nv), ctrl (B, nu);
+    `qfrc_applied` (B, nv) is added to the smooth force (mjData.qfrc_applied),
+    `con_mu` (S, 5) or (B, S, 5) replaces the model's per-slot friction
+    (`constraints.runtime_con_mu`). Its stages are named ranges for
+    torch.profiler: smooth, contacts (itself narrow_phase, then assembly),
+    newton."""
     with record_function('smooth'):
         kin = fk(dm, qpos)
         cdof = _cdof(dm, kin)
@@ -74,13 +78,15 @@ def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
         bias = dynamics.rne_bias(dm, kin, qvel, cdof)
         passive = dynamics.passive_force(dm, qpos, qvel)
         act = dynamics.actuator_force(dm, ctrl)
-        qfrc_smooth = passive + act - bias
+        qfrc_smooth = (passive + act - bias if qfrc_applied is None
+                       else passive + act + qfrc_applied - bias)
         qacc_smooth = spd_solve_batched(M, qfrc_smooth)
     with record_function('contacts'):
         with record_function('narrow_phase'):
             contacts = collide(dm, kin)
         with record_function('assembly'):
-            efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, max_cone=max_contacts)
+            efc = make_efc(dm, kin, qpos, qvel, contacts, cdof, con_mu=con_mu,
+                           max_cone=max_contacts)
     with record_function('newton'):   # one launch of the fused kernel on the card
         qacc, f_simple, f_cone, qfrc_constraint = newton_fused.solve_batched(
             M, qacc_smooth, efc, warmstart=warmstart, iterations=solver_iterations)
@@ -128,21 +134,24 @@ def euler(dm: DeviceModel, qpos, qvel, fwd: Forward):
 
 def step_batched(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
                  solver_iterations: int = DEFAULT_SOLVER_ITERS,
-                 max_contacts: int = MAX_CONE_CONTACTS):
+                 max_contacts: int = MAX_CONE_CONTACTS, qfrc_applied=None, con_mu=None):
     """mj_step for B envs: returns (qpos', qvel', Forward at the old state)
     on the model's device. Thread `fwd.qacc` back in as the next step's
-    `warmstart`."""
-    fwd = forward(dm, qpos, qvel, ctrl, warmstart, solver_iterations, max_contacts)
+    `warmstart`. `qfrc_applied` and `con_mu` as in `forward`."""
+    fwd = forward(dm, qpos, qvel, ctrl, warmstart, solver_iterations, max_contacts,
+                  qfrc_applied, con_mu)
     qpos_new, qvel_new = euler(dm, qpos, qvel, fwd)
     return qpos_new, qvel_new, fwd
 
 
 def step(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
          solver_iterations: int = DEFAULT_SOLVER_ITERS,
-         max_contacts: int = MAX_CONE_CONTACTS):
-    """One env: qpos (nq,), qvel (nv,), ctrl (nu,). `step_batched` on a batch
-    of one; the returned Forward keeps its batch axis of one."""
-    ws = None if warmstart is None else warmstart[None]
-    qp, qv, fwd = step_batched(dm, qpos[None], qvel[None], ctrl[None], ws,
-                               solver_iterations, max_contacts)
+         max_contacts: int = MAX_CONE_CONTACTS, qfrc_applied=None, con_mu=None):
+    """One env: qpos (nq,), qvel (nv,), ctrl (nu,), qfrc_applied (nv,),
+    con_mu (S, 5). `step_batched` on a batch of one; the returned Forward
+    keeps its batch axis of one."""
+    one = lambda x: None if x is None else x[None]
+    qp, qv, fwd = step_batched(dm, qpos[None], qvel[None], ctrl[None], one(warmstart),
+                               solver_iterations, max_contacts, one(qfrc_applied),
+                               one(con_mu))
     return qp[0], qv[0], fwd

@@ -81,3 +81,23 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros_like(x)
     m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
     return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz -> (..., 3) extrinsic XYZ Euler angles (roll, pitch,
+    yaw), R = Rz(yaw) Ry(pitch) Rx(roll), as scipy's as_euler('xyz')."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], -1)
+
+
+def euler_xyz_to_quat(e: torch.Tensor) -> torch.Tensor:
+    """(..., 3) extrinsic XYZ (roll, pitch, yaw) -> (..., 4) wxyz; R = Rz Ry Rx."""
+    cr, cp, cy = torch.cos(0.5 * e).unbind(-1)
+    sr, sp, sy = torch.sin(0.5 * e).unbind(-1)
+    return torch.stack([cr * cp * cy + sr * sp * sy,
+                        sr * cp * cy - cr * sp * sy,
+                        cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy], -1)

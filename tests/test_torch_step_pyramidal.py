@@ -9,6 +9,12 @@ slots x 4 pyramidal rows), no cone blocks (C = 0).
   qvel and torques): 1e-9.
 * 200 steps at B=2 from the keyframe with seeded U(-2, 2) torques and the
   qacc warm start threaded: within 1e-3 in qpos (the BASELINE bar).
+* The port's `QuadrupedEnv` on aliengo/flat: 20 `env.step` from the feet
+  on the floor against the same per-env step, within 1e-3 in qpos. With
+  the env's default friction (the ground's and the feet's sliding
+  friction 1, the model's own) its per-env friction table gives the
+  pyramidal rows the model's mu, so the reference's env step is this
+  `engine.step` and the module's one program serves both.
 
 b2/flat and hyqreal2/flat take one step each in test_torch_step_b2.py and
 test_torch_step_hyqreal2.py, and aliengo's batch against the reference's
@@ -26,6 +32,7 @@ import torch
 
 from gym_quadruped_tpu.models.builder import load_model as jload
 from gym_quadruped_tpu.physics import engine as jeng
+from gym_quadruped_tpu_torch.env import QuadrupedEnv, init_state
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics import engine as peng
 from test_torch_step import _close, _contact_state, _ref_steps
@@ -95,4 +102,28 @@ def test_trajectory_200_steps(robot_of):
     assert n_active > 0, 'the trajectory never reached the contact path'
     assert np.isfinite(q.numpy()).all()
     err = np.abs(q.numpy() - rq).max()
+    assert err < 1e-3, err
+
+
+def test_env_trajectory_20_steps(robot_of):
+    jm, dm, jstep = robot_of('aliengo')
+    env = QuadrupedEnv('aliengo', model=dm, state_obs_names=('qpos', 'contact_state'))
+    B, T = 3, 20
+    rng = np.random.RandomState(6)
+    ctrls = rng.uniform(-2, 2, (T, B, jm.nu))
+    qpos = np.tile(jm.key_qpos[0], (B, 1))
+    qpos[:, 2] -= 0.0127 + rng.uniform(0.0, 0.005, B)      # the feet on the floor
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (B, jm.nq - 7))
+    qvel = 0.1 * rng.randn(B, jm.nv)
+    state = dataclasses.replace(init_state(dm, B), qpos=torch.as_tensor(qpos),
+                                qvel=torch.as_tensor(qvel),
+                                geom_friction=env._sample_friction(None, B))
+    rq, rv, rw = qpos, qvel, np.zeros((B, jm.nv))
+    touched = 0
+    for t in range(T):
+        rq, rv, rw, _, _ = _ref_steps(jstep, rq, rv, ctrls[t], rw)
+        state, obs, *_ = env.step(state, torch.as_tensor(ctrls[t]))
+        touched += int(obs['contact_state'].sum())
+    assert touched > 0, 'no foot touched the floor'
+    err = np.abs(state.qpos.numpy() - rq).max()
     assert err < 1e-3, err
