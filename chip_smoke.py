@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --newton-agreement   # phases 1 and 5 alone
+    python3 chip_smoke.py --terrain            # phases 1-2 and 35-41 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -31,12 +32,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      and prints its failures instead of raising (exit code 1 if any), so that
      a copy of this script run in another checkout reads that checkout's
      kernel on the same seeded states;
-  6. the main path: spot/flat, B=4096, f32, 200 steps of `step_batched` from
+  6. the main path: spot/flat, B=4096, f32, 100 steps of `step_batched` from
      the keyframe with seeded U(-2, 2) torques and the qacc warm start; every
      state finite, contacts active, exactly 2 SPD and 1 Newton kernel
      launches per step;
   7. card against CPU: 16 envs stepped 20 times in f64 on the CPU through the
-     same functions, from the card's states at steps 0 and 100; every env
+     same functions, from the card's states at steps 0 and 80; every env
      within 1e-3 in qpos of the card after the 20 steps (the line also
      counts envs whose active rows or slots differed from the card's);
   8. Newton timings on the main path's last step inputs, in both forms: the
@@ -70,13 +71,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      mm into the floor) and on states pressed 3 cm further (active
      pyramidal rows past row 64, the kernel's third word of active rows),
      then runs phase 5's checks with the pressed states among its cases.
-     The CPU comparison starts at step 100 alone: the feet start 12.7 mm
-     above the floor and first touch it after ~25 steps, so steps 0-20
-     hold no contact;
+     100 steps; the CPU comparison starts at step 80 alone: the feet
+     start 12.7 mm above the floor and first touch it after ~25 steps, so
+     steps 0-20 hold no contact;
  20-24. the same on b2/flat (998 slots, cylinder hips: the plane-,
      sphere- and box-cylinder groups among the narrow phase's; ns 140),
-     phase 20 on the soft states alone, the CPU comparison from step 100
-     (the feet touch after ~30 steps);
+     phase 20 on the soft states alone, 100 steps, the CPU comparison from
+     step 80 (the feet touch after ~30 steps);
  25-29. the same on hyqreal2/random_boxes (6,173 slots, 400 world boxes;
      ns 158), BASELINE cfg4's scene: phase 25 on the soft states alone, 20
      steps at B=4096, 4 envs stepped 20 times on the CPU from step 0;
@@ -103,19 +104,40 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      time against a plain env.step;
  34. the hyqreal2/random_boxes env (BASELINE cfg4) with a forward+rotate
      command: random reset, 20 steps at B=4096, env-steps/s, lift rounds,
-     peak memory, every state finite.
+     peak memory, every state finite;
+ 35-39. go2/perlin (BASELINE cfg2: 1,607 slots, the heightfield-sphere,
+     -capsule and -box groups), the five phases of go2/flat from its start
+     on the terrain: the keyframe starts buried in the perlin terrain, so
+     it is lifted out by the env's rule (base z raised by 1.1 x the feet's
+     deepest penetration until no foot slot is active) and lowered along
+     the nearest foot's normal until that foot presses 1 mm into it
+     (phase 35 prints both); the agreement's soft states are that start pressed U(0, 5) mm
+     into the terrain (only the feet touch: condim-6 blocks); 200 steps,
+     card against CPU from steps 0 and 100, Newton timings, the profile
+     with the three heightfield groups among the narrow phase's;
+ 40. go2/perlin's env with random velocity commands (heading U(-pi, pi),
+     speed U(0, 1) m/s) and per-env friction: random reset (lift rounds),
+     100 `env.step` at B=4096 beside phase 36's bare rate, 2 SPD + 1 Newton
+     launches per step, no more host syncs than `step_batched`, peak
+     memory, every state and observable finite;
+ 41. b2/perlin (the heightfield-cylinder group) and hyqreal2/perlin (72
+     prisms per heightfield-box pair), 20 steps each at B=4096 from their
+     start on the terrain: steps/s, peak memory, launches, finite, and each
+     narrow-phase group's stream and host ms.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
 Next to each time, rate and memory size the line gives the card's name
 and power limit. Then come the seconds each phase took, the kernels' JSON
-record on the line before the last, and {"ok": true, "device": {...}} last.
+record on the line before the last (go2/perlin's fields prefixed
+`go2_perlin_`), and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -131,11 +153,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from gym_quadruped_tpu_torch.env import ALL_OBS, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step
-from gym_quadruped_tpu_torch.models.model import load_model
+from gym_quadruped_tpu_torch.models.model import GEOM_HFIELD, load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import constraint_layout, pyramidal_rows
+from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask
 
 SEED = 0
 BATCH = 4096
@@ -247,22 +270,52 @@ def bound(n_bytes, n_flop):
     return max(t_bytes, t_flop) * 1e3, 'bytes' if t_bytes >= t_flop else 'operations'
 
 
+def on_terrain(m):
+    """The scene has a heightfield: its keyframe starts buried in it."""
+    return bool((m.geom_type == GEOM_HFIELD).any())
+
+
+@functools.lru_cache(maxsize=None)
+def start_qpos(dm):
+    """(the start qpos (nq,), how far the lift raised the base, how far it
+    was lowered after, the lift's rounds): the keyframe; on a heightfield
+    the keyframe lifted out of the terrain by the env's rule (base z raised
+    by 1.1 x the feet's deepest penetration until no foot slot is active),
+    then lowered onto it: by the nearest foot slot's distance over its
+    normal's z and 1 mm more, so that this foot presses 1 mm into the
+    terrain (at exactly touching, its activation would be rounding's)."""
+    key = torch.as_tensor(dm.m.key_qpos[0], dtype=dm.dtype, device=dm.device)
+    if not on_terrain(dm.m):
+        return key, 0.0, 0.0, 0
+    env = QuadrupedEnv(dm.m.robot, scene=dm.m.scene, model=dm)
+    lifted, rounds = env._lift_until_no_contact(key[None])
+    foot = torch.as_tensor(np.any(feet_slot_mask(dm.m) > 0, axis=0), device=dm.device)
+    con = collision.collide(dm, kinematics.fk(dm, lifted))
+    dist = torch.where(foot, con.dist[0], torch.inf)
+    i = int(dist.argmin())
+    lower = max(0.0, dist[i].item() / con.normal[0, i, 2].item()) + 0.001
+    qpos = lifted[0].clone()
+    qpos[2] -= lower
+    return qpos, (lifted[0, 2] - key[2]).item(), lower, rounds
+
+
 def clearance(dm):
-    """How far the keyframe's nearest contact slot is from touching (0 when
-    it touches): aliengo's feet stand 12.7 mm above the floor, b2's 17.9 mm,
+    """How far the start's nearest contact slot is from touching (0 when it
+    touches): aliengo's feet stand 12.7 mm above the floor, b2's 17.9 mm,
     hyqreal2's 6.1 mm; spot's and go2's press into it."""
-    kin = kinematics.fk(dm, torch.as_tensor(dm.m.key_qpos[:1], dtype=dm.dtype, device=dm.device))
+    kin = kinematics.fk(dm, start_qpos(dm)[0][None])
     return max(0.0, collision.collide(dm, kin).dist.min().item())
 
 
 def soft_state(dm, gen, B, limits=False, press=0.0):
-    """M, a_smooth and the rows of B seeded flat-floor states: the keyframe
+    """M, a_smooth and the rows of B seeded soft contact states: the start
+    (`start_qpos`: the keyframe, on a heightfield lifted out of the terrain)
     lowered by its clearance, then `press` and U(0, 5) mm more into the
-    floor, qvel 0, U(-0.5, 0.5) torques. With `limits`, the first limited
-    joint (a hip) of about a quarter of the envs sits 0.01 rad past the top
-    of its range."""
+    floor or terrain, qvel 0, U(-0.5, 0.5) torques. With `limits`, the first
+    limited joint (a hip) of about a quarter of the envs sits 0.01 rad past
+    the top of its range."""
     m = dm.m
-    qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device='cuda').repeat(B, 1)
+    qpos = start_qpos(dm)[0].repeat(B, 1)
     qpos[:, 2] -= clearance(dm) + press + 0.005 * torch.rand(B, generator=gen, device='cuda')
     ctrl = torch.rand(B, m.nu, generator=gen, device='cuda') - 0.5
     if limits:
@@ -470,21 +523,46 @@ def spot_agreement(dm, phase=5):
     return newton_agreement(dm, phase)[:2]
 
 
-def go2_agreement(go2, phase=10):
-    """Phase 10: the fused Newton kernel against the eager solve on seeded
-    soft go2/flat states: `three_solves` at the caps 10 and 30 (the kernel
+def go2_agreement(go2, phase=10, dims_needed=(3, 6)):
+    """Phases 10 and 35: the fused Newton kernel against the eager solve on
+    seeded soft go2 states: `three_solves` at the caps 10 and 30 (the kernel
     within GO2_CAP10_BAR of the eager f32 solve at 10), then phase 5 on go2
-    at the cap of 30. Returns (the max abs qacc difference of phase 5's soft
+    at the cap of 30; the active blocks must include each cone dimension of
+    `dims_needed`. Returns (the max abs qacc difference of phase 5's soft
     per-env case, the bars failed)."""
     M, a_s, efc = soft_state(go2, torch.Generator(device='cuda').manual_seed(SEED), BATCH)
-    failures, _ = three_solves(go2, M, a_s, efc, 'go2/flat soft states', phase,
-                               (10, GO2_AGREEMENT_ITERATIONS), GO2_CAP10_BAR)
+    failures, _ = three_solves(go2, M, a_s, efc, f'{go2.m.robot}/{go2.m.scene} soft states',
+                               phase, (10, GO2_AGREEMENT_ITERATIONS), GO2_CAP10_BAR)
     abs_err, more, dims = newton_agreement(go2, phase, GO2_AGREEMENT_ITERATIONS,
                                            GO2_ITERATION_ENVS_BAR)
     failures += more
-    if not {3, 6} <= dims:
-        failures.append(f'go2 soft states without active condim-3 and condim-6 blocks: {dims}')
+    if not set(dims_needed) <= dims:
+        failures.append(f'{go2.m.robot}/{go2.m.scene} soft states without active blocks of '
+                        f'each condim of {dims_needed}: {dims}')
     return abs_err, failures
+
+
+def log_start(dm, phase):
+    """The start of a heightfield scene: how far the lift out of the terrain
+    raised the keyframe, in how many rounds, and how far it was then lowered
+    onto the terrain; the terrain's height under the base."""
+    m = dm.m
+    q, raised, lowered, rounds = start_qpos(dm)
+    h = int(np.flatnonzero(m.geom_type == GEOM_HFIELD)[0])
+    base = torch.as_tensor(m.key_qpos[0, :2] - m.geom_pos[h, :2], dtype=dm.dtype, device=dm.device)
+    ground = collision.hfield_height(dm, base[0], base[1]).item() + float(m.geom_pos[h, 2])
+    log(phase, f'{m.robot}/{m.scene} start: keyframe base z {m.key_qpos[0, 2]:.4f} over terrain '
+               f'at height {ground:.4f}; the lift raised it {raised:.4f} m in {rounds} rounds, '
+               f'then lowered {lowered:.4f} m onto the terrain: base z {q[2].item():.4f}')
+
+
+def terrain_agreement(dm, phase):
+    """Phase 35: `go2_agreement` on soft states against the terrain (the
+    lifted keyframe, then U(0, 5) mm into it), after `log_start`: the feet
+    touch the terrain alone, so the active blocks are the feet's condim-6
+    ones."""
+    log_start(dm, phase)
+    return go2_agreement(dm, phase, dims_needed=(6,))
 
 
 def pyramidal_agreement(dm, phase, presses=(0.0,), phase5=False):
@@ -557,8 +635,9 @@ def active_contacts(efc, lay):
 
 
 def main_path(dm, phase, steps, windows, n_cpu):
-    """Phases 6, 11, 16, 21 and 26: B=4096 f32 steps of `step_batched` from
-    the keyframe with seeded U(-2, 2) torques and the qacc warm start. Every
+    """Phases 6, 11, 16, 21, 26, 36 and 41: B=4096 f32 steps of
+    `step_batched` from the start (`start_qpos`) with seeded U(-2, 2)
+    torques and the qacc warm start. Every
     launch count is set to 0 just before the run and read just after it.
     Checks: every state finite, contacts active, exactly 2 SPD and 1 Newton
     launch per step. Keeps, for the first n_cpu envs and each step of the
@@ -569,8 +648,7 @@ def main_path(dm, phase, steps, windows, n_cpu):
     lay = constraint_layout(m)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     ctrls = torch.rand(steps, BATCH, m.nu, generator=gen, device='cuda') * 4.0 - 2.0
-    qpos = torch.as_tensor(np.tile(m.key_qpos[0], (BATCH, 1)), dtype=torch.float32,
-                           device='cuda')
+    qpos = start_qpos(dm)[0].repeat(BATCH, 1)
     qvel = torch.zeros(BATCH, m.nv, device='cuda')
     warm = torch.zeros(BATCH, m.nv, device='cuda')
     finite = torch.ones((), dtype=torch.bool, device='cuda')
@@ -630,10 +708,10 @@ def main_path(dm, phase, steps, windows, n_cpu):
 
 
 def card_against_cpu(dm, run, phase):
-    """Phases 7, 12, 17, 22 and 27: the run's first envs stepped CPU_STEPS
-    times in f64 on the CPU through the same functions, from the card's
-    states at each start of the run's windows; every env's qpos after the
-    steps within 1e-3 of the card's f32 state. The line also counts the
+    """Phases 7, 12, 17, 22, 27 and 37: the run's first envs stepped
+    CPU_STEPS times in f64 on the CPU through the same functions, from the
+    card's states at each start of the run's windows; every env's qpos after
+    the steps within 1e-3 of the card's f32 state. The line also counts the
     envs whose set of active simple rows and cone slots differed from the
     card's at some step (a row at its activation threshold to rounding),
     which would explain a failure."""
@@ -876,17 +954,19 @@ def all_finite(state, obs):
     return ok
 
 
-def env_main_path(bare_steps_per_s, phase=30):
-    """Phase 30: the env layer's main path, go2/flat at B=4096 in f32
-    through `QuadrupedEnv(...).reset` and `.step`, per-env friction: a random
-    reset, then STEPS steps with seeded U(-2, 2) torques and the default
-    observables, the launch counts set to 0 just before the steps and read
-    just after (exactly 2 SPD and 1 Newton launch per step), every state
-    and observable finite, env-steps/s beside the bare step's of phase 11
-    in this call, peak device memory, host synchronisations of one env.step
-    against one step_batched. Keeps the first N_CPU_ENVS envs' state at step
-    100 and after CPU_STEPS more, for phase 32."""
-    env = QuadrupedEnv('go2', scene='flat', base_vel_command_type='forward',
+def env_main_path(bare_steps_per_s, phase=30, scene='flat', command='forward', steps=STEPS,
+                  bare_phase=11):
+    """Phases 30 and 40: the env layer's main path, go2 on `scene` at B=4096
+    in f32 through `QuadrupedEnv(...).reset` and `.step`, per-env friction
+    and a `command` velocity command: a random reset, then `steps` steps
+    with seeded U(-2, 2) torques and the default observables, the launch
+    counts set to 0 just before the steps and read just after (exactly 2 SPD
+    and 1 Newton launch per step), every state and observable finite,
+    env-steps/s beside the bare step's of `bare_phase` in this call, peak
+    device memory, host synchronisations of one env.step against one
+    step_batched. Keeps the first N_CPU_ENVS envs' state at step 100 and
+    after CPU_STEPS more, for phase 32."""
+    env = QuadrupedEnv('go2', scene=scene, base_vel_command_type=command,
                        ref_base_lin_vel=(0.0, 1.0), ground_friction_coeff=(0.5, 1.5))
     dm = env.model
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -898,18 +978,18 @@ def env_main_path(bare_steps_per_s, phase=30):
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
     mu = state.geom_friction[:, dm.m.feet_geom_id[0], 0]
-    log(phase, f'go2/flat env reset B={BATCH}: {reset_s:.3f} s, {env.lift_rounds} rounds of the '
+    log(phase, f'go2/{scene} env reset B={BATCH}: {reset_s:.3f} s, {env.lift_rounds} rounds of the '
                f'lift out of contact, launches spd_solve {spd.launches}, newton_fused '
                f'{nf.launches}; feet friction per env in [{mu.min().item():.3f}, '
                f'{mu.max().item():.3f}]; on {smi()}')
-    actions = torch.rand(STEPS, BATCH, dm.m.nu, generator=gen, device='cuda') * 4.0 - 2.0
+    actions = torch.rand(steps, BATCH, dm.m.nu, generator=gen, device='cuda') * 4.0 - 2.0
     finite = all_finite(state, obs)
     kept = {}
     per_step = []
     torch.cuda.synchronize()
     spd.launches = nf.launches = 0
     t0 = time.perf_counter()
-    for t in range(STEPS):
+    for t in range(steps):
         if t in (100, 100 + CPU_STEPS):
             kept[t] = state.map(lambda x: x[:N_CPU_ENVS].clone())
         before = spd.launches, nf.launches
@@ -919,9 +999,9 @@ def env_main_path(bare_steps_per_s, phase=30):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
-    rate = STEPS / wall
-    log(phase, f'go2/flat env.step B={BATCH} f32: {STEPS} steps in {wall:.3f} s = {rate:.2f} '
-               f'steps/s = {BATCH * rate:.1f} env-steps/s; the bare step_batched of phase 11 '
+    rate = steps / wall
+    log(phase, f'go2/{scene} env.step B={BATCH} f32: {steps} steps in {wall:.3f} s = {rate:.2f} '
+               f'steps/s = {BATCH * rate:.1f} env-steps/s; the bare step_batched of phase {bare_phase} '
                f'in this call {bare_steps_per_s:.2f} steps/s = {BATCH * bare_steps_per_s:.1f} '
                f'env-steps/s (env/bare {rate / bare_steps_per_s:.3f}); peak device memory from '
                f'the reset on {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {smi()}')
@@ -930,7 +1010,7 @@ def env_main_path(bare_steps_per_s, phase=30):
                f'last step {int(term.sum())} of {BATCH}; mean base height '
                f'{state.qpos[:, 2].mean().item():.4f}')
     if not bool(finite):
-        raise AssertionError('a state or observation of the go2/flat env path is not finite')
+        raise AssertionError(f'a state or observation of the go2/{scene} env path is not finite')
     if any(k != (2, 1) for k in per_step):
         raise AssertionError(f'expected 2 spd_solve and 1 newton_fused launch per env.step, got '
                              f'{sorted(set(per_step))}')
@@ -1103,25 +1183,88 @@ def env_random_boxes(phase=34, steps=20):
         raise AssertionError(f'hyqreal2/random_boxes env: launches {spd.launches}, {nf.launches}')
 
 
-# The main paths, five phases each from phase 5 on (Newton agreement, main
-# path, card against CPU, Newton timing, profile): robot, scene, steps on
-# the card, the steps the CPU comparison starts from, the envs it steps, and
-# the agreement phase. aliengo's and b2's feet start above the floor and
-# touch it after ~25 and ~30 steps: their comparison starts at step 100.
+def terrain_steps(phase=41, steps=20):
+    """Phase 41: b2/perlin (the heightfield-cylinder group) and
+    hyqreal2/perlin (72 prisms per heightfield-box pair) at B=4096, `steps`
+    steps of `step_batched` each from the start on the terrain (phase 36's
+    checks: finite, contacts, 2 SPD and 1 Newton launch per step; steps/s,
+    peak memory), then each narrow-phase group's stream and host ms.
+    Returns {robot: launches}."""
+    out = {}
+    for robot in ('b2', 'hyqreal2'):
+        dm = load_model(robot, 'perlin', device='cuda', dtype=torch.float32)
+        log_start(dm, phase)
+        run = main_path(dm, phase, steps, (), 0)
+        narrow_phase_groups(dm, run, phase)
+        out[robot] = run['launches']
+        del run
+    return out
+
+
+# The main paths, five phases each (Newton agreement, main path, card against
+# CPU, Newton timing, profile) from `phase`: robot, scene, steps on the card,
+# the steps the CPU comparison starts from, the envs it steps, the agreement
+# phase, the prefix of the kernels line's fields. spot, aliengo and b2 run
+# 100 steps, to keep the whole run near 450 s. aliengo's and b2's feet
+# start above the floor and touch it after ~25 and ~30 steps: their
+# comparison starts at step 80. go2/perlin (BASELINE cfg2) starts on the
+# terrain (`start_qpos`).
 SCENES = (
-    ('spot', 'flat', STEPS, (0, 100), N_CPU_ENVS, spot_agreement),
-    ('go2', 'flat', STEPS, (0, 100), N_CPU_ENVS, go2_agreement),
-    ('aliengo', 'flat', STEPS, (100,), N_CPU_ENVS,
-     lambda dm, phase: pyramidal_agreement(dm, phase, (0.0, PRESS), phase5=True)),
-    ('b2', 'flat', STEPS, (100,), N_CPU_ENVS, pyramidal_agreement),
-    ('hyqreal2', 'random_boxes', 20, (0,), 4, pyramidal_agreement),
+    (5, 'spot', 'flat', 100, (0, 80), N_CPU_ENVS, spot_agreement, ''),
+    (10, 'go2', 'flat', STEPS, (0, 100), N_CPU_ENVS, go2_agreement, 'go2_'),
+    (15, 'aliengo', 'flat', 100, (80,), N_CPU_ENVS,
+     lambda dm, phase: pyramidal_agreement(dm, phase, (0.0, PRESS), phase5=True), 'aliengo_'),
+    (20, 'b2', 'flat', 100, (80,), N_CPU_ENVS, pyramidal_agreement, 'b2_'),
+    (25, 'hyqreal2', 'random_boxes', 20, (0,), 4, pyramidal_agreement, 'hyqreal2_'),
+    (35, 'go2', 'perlin', STEPS, (0, 100), N_CPU_ENVS, terrain_agreement, 'go2_perlin_'),
 )
+
+
+def scene_phases(entry, spd_fields, newton_fields):
+    """One SCENES entry's five phases; fills its kernels-line fields and
+    returns its main path's steps/s."""
+    phase, robot, scene, steps, windows, n_cpu, agreement, prefix = entry
+    dm = load_model(robot, scene, device='cuda', dtype=torch.float32)
+    sizes = newton_sizes(dm.m)
+    blocks, per_block, smem = nf.occupancy(*sizes)
+    log(phase, f'newton_fused at {robot}/{scene} (nv, ns, C)={sizes}: {blocks} blocks of '
+               f'{per_block} envs per SM = {blocks * per_block} resident envs per SM, '
+               f'{smem} B of shared memory per block ({smem / per_block / 1024:.2f} KB '
+               f'per env)')
+    newton_abs_err, failures = agreement(dm, phase)
+    if failures:
+        raise AssertionError('; '.join(failures))
+    run = main_path(dm, phase + 1, steps, windows, n_cpu)
+    card_against_cpu(dm, run, phase + 2)
+    newton = newton_timing(run['last'], phase + 3)
+    device_profile(dm, run, phase + 4)
+    narrow_phase_groups(dm, run, phase + 4)
+    spd_fields[f'{prefix}launches'] = run['launches']['spd_solve']
+    newton_fields.update({f'{prefix}launches': run['launches']['newton_fused'],
+                          f'{prefix}max_abs_err': newton_abs_err,
+                          **{prefix + k: v for k, v in newton.items()}})
+    return run['steps_per_s']
+
+
+def terrain_phases(spd_fields, newton_fields, rates):
+    """Phases 35-39 (go2/perlin, BASELINE cfg2), 40 (its env with random
+    velocity commands) and 41 (b2/perlin and hyqreal2/perlin)."""
+    rates['go2', 'perlin'] = scene_phases(SCENES[5], spd_fields, newton_fields)
+    run = env_main_path(rates['go2', 'perlin'], 40, 'perlin', 'random', 100, 36)
+    spd_fields['env_perlin_launches'] = run['launches']['spd_solve']
+    newton_fields['env_perlin_launches'] = run['launches']['newton_fused']
+    del run
+    for robot, launches in terrain_steps().items():
+        spd_fields[f'{robot}_perlin_launches'] = launches['spd_solve']
+        newton_fields[f'{robot}_perlin_launches'] = launches['newton_fused']
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--newton-agreement', action='store_true',
                         help='run phases 1 and 5 alone and print their failures')
+    parser.add_argument('--terrain', action='store_true',
+                        help='run phases 1-2 and 35-41 alone (the perlin scenes)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -1152,6 +1295,15 @@ def main():
     log(2, f'newton_fused at (nv, ns, C)={sizes}: {nf_blocks} blocks of {per_block} envs per '
            f'SM = {nf_blocks * per_block} resident envs per SM, {smem} B of shared memory '
            f'per block ({smem / per_block / 1024:.2f} KB per env)')
+
+    spd_fields = {}
+    newton_fields = {}
+    rates = {}
+    if args.terrain:
+        terrain_phases(spd_fields, newton_fields, rates)
+        log('time', f'seconds per phase: {phase_seconds()}; '
+                    f'{time.perf_counter() - T_START:.1f} s in all')
+        return
 
     # ---- 3. kernel against plain, on the card ----------------------------------------
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -1192,37 +1344,12 @@ def main():
 
     # ---- 5-29. per main path: Newton agreement, the path, card against CPU, Newton
     # timings, profile and narrow phase by group
-    spd_fields = {}
-    newton_fields = {}
-    rates = {}
-    for i, (robot, scene, steps, windows, n_cpu, agreement) in enumerate(SCENES):
-        phase = 5 + 5 * i
-        dm = load_model(robot, scene, device='cuda', dtype=torch.float32)
-        sizes = newton_sizes(dm.m)
-        blocks, per_block, smem = nf.occupancy(*sizes)
-        log(phase, f'newton_fused at {robot}/{scene} (nv, ns, C)={sizes}: {blocks} blocks of '
-                   f'{per_block} envs per SM = {blocks * per_block} resident envs per SM, '
-                   f'{smem} B of shared memory per block ({smem / per_block / 1024:.2f} KB '
-                   f'per env)')
-        newton_abs_err, failures = agreement(dm, phase)
-        if failures:
-            raise AssertionError('; '.join(failures))
-        run = main_path(dm, phase + 1, steps, windows, n_cpu)
-        card_against_cpu(dm, run, phase + 2)
-        newton = newton_timing(run['last'], phase + 3)
-        device_profile(dm, run, phase + 4)
-        narrow_phase_groups(dm, run, phase + 4)
-        rates[robot] = run['steps_per_s']
-        prefix = f'{robot}_' if i else ''    # spot's fields are the kernels' own
-        spd_fields[f'{prefix}launches'] = run['launches']['spd_solve']
-        newton_fields.update({f'{prefix}launches': run['launches']['newton_fused'],
-                              f'{prefix}max_abs_err': newton_abs_err,
-                              **{prefix + k: v for k, v in newton.items()}})
-        del run
+    for entry in SCENES[:5]:
+        rates[entry[1:3]] = scene_phases(entry, spd_fields, newton_fields)
 
     # ---- 30-34. the env layer: go2/flat, all observables, card against CPU,
     # quarantine; hyqreal2/random_boxes
-    run = env_main_path(rates['go2'])
+    run = env_main_path(rates['go2', 'flat'])
     env_all_obs(run)
     env_card_against_cpu(run)
     env_quarantine(run)
@@ -1230,6 +1357,8 @@ def main():
     newton_fields['env_launches'] = run['launches']['newton_fused']
     del run
     env_random_boxes()
+
+    terrain_phases(spd_fields, newton_fields, rates)
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')

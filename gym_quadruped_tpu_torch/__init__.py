@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of gym_quadruped_tpu's batched physics step and env layer.
+"""PyTorch/CUDA port of gym_quadruped_tpu's batched physics step, env layer and
+terrain (the perlin scenes' heightfield, `terrain.perlin`).
 
 Entry points: `env.QuadrupedEnv(robot, scene, ...)`, whose `reset(generator,
 B)` and `step(state, action)` run B envs, and below it

@@ -1,5 +1,7 @@
 """Convex contact by support-function SAT, pattern refinement and MuJoCo's
-multiccd perturbation manifold, for the capsule-box and cylinder-box pairs.
+multiccd perturbation manifold, for the capsule-box and cylinder-box pairs,
+and the SAT, refinement and witness of the heightfield's box and cylinder
+pairs (one contact per prism, no manifold).
 
 Counterpart of gym_quadruped_tpu/physics/ccd.py, limited to what those pairs
 need. MuJoCo collides convex pairs with its native CCD (GJK/EPA) plus
@@ -232,6 +234,43 @@ def cyl_face(d, R):
     return da.abs() > _FACE_TOL, torch.sign(da), npr > _FACE_TOL
 
 
+def clip_onto_triangle(pt, a, b, c):
+    """Closest point of the triangle (a, b, c) to pt, all (..., 3), by the
+    barycentric region decomposition: the clamped face point, overridden
+    in turn by edge ab, ac, bc and vertex a, b, c where their regions hold.
+    Degenerate denominators are kept at 1e-30 (physics/collision.py's
+    `_closest_point_triangle` swaps an exact 0 for 1 instead, with the
+    regions in another order: the two are kept apart)."""
+    ab, ac, ap = b - a, c - a, pt - a
+    d1 = _dot(ab, ap)
+    d2 = _dot(ac, ap)
+    bp = pt - b
+    d3 = _dot(ab, bp)
+    d4 = _dot(ac, bp)
+    cp = pt - c
+    d5 = _dot(ab, cp)
+    d6 = _dot(ac, cp)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom = torch.clamp_min(va + vb + vc, 1e-30)
+    v = torch.clamp(vb / denom, 0.0, 1.0)
+    w = torch.clamp(vc / denom, 0.0, 1.0)
+    out = a + v[..., None] * ab + w[..., None] * ac
+    t_ab = torch.clamp(d1 / torch.clamp_min(d1 - d3, 1e-30), 0.0, 1.0)
+    t_ac = torch.clamp(d2 / torch.clamp_min(d2 - d6, 1e-30), 0.0, 1.0)
+    t_bc = torch.clamp((d4 - d3) / torch.clamp_min((d4 - d3) + (d5 - d6), 1e-30), 0.0, 1.0)
+    regions = (((vc <= 0) & (d1 >= 0) & (d3 <= 0), a + t_ab[..., None] * ab),
+               ((vb <= 0) & (d2 >= 0) & (d6 <= 0), a + t_ac[..., None] * ac),
+               ((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0), b + t_bc[..., None] * (c - b)),
+               ((d1 <= 0) & (d2 <= 0), a),
+               ((d3 >= 0) & (d4 <= d3), b),
+               ((d6 >= 0) & (d5 <= d6), c))
+    for inside, q in regions:
+        out = torch.where(inside[..., None], q, out)
+    return out
+
+
 def pocs(w, clip_a, clip_b):
     """3 rounds of alternating projections, then an Aitken vector
     extrapolation and one more round."""
@@ -245,12 +284,15 @@ def pocs(w, clip_a, clip_b):
 
 
 def witness(n, depth, starts, face_a, face_b, vol_a, vol_b):
-    """Contact position (the witness-pair midpoint) for one (possibly
-    perturbed) configuration. Each start runs face-POCS, then touch-point
-    refinement against B translated by (depth - _KAPPA) n; of the three
-    routes per start (raw face point, touched face point, touched start) the
-    smallest touch residual wins, earlier routes preferred by 1e-6."""
-    shift = (depth - _KAPPA)[..., None] * n
+    """Contact position (the witness-pair midpoint) of each (possibly
+    perturbed) configuration, n (..., 3) and depth (...,). The candidate
+    starts are stacked on axis -2 of `starts` (..., S, 3), and the clip
+    functions broadcast over that axis. Each start runs face-POCS, then
+    touch-point refinement against B translated by (depth - _KAPPA) n; of
+    the three routes per start (raw face point, touched face point,
+    touched start) the smallest touch residual wins, the earlier start and
+    route preferred by 1e-6."""
+    shift = ((depth - _KAPPA)[..., None] * n)[..., None, :]
 
     def vol_b_shift(pt):
         return vol_b(pt - shift) + shift
@@ -258,22 +300,20 @@ def witness(n, depth, starts, face_a, face_b, vol_a, vol_b):
     def touch(start):
         return pocs(pocs(start, vol_a, vol_b_shift), vol_a, vol_b_shift)
 
-    def resid(q):
-        return _norm(q - vol_b_shift(q))
-
+    w_face = pocs(starts, face_a, face_b)
+    routes = (w_face, touch(w_face), touch(starts))
+    resids = [_norm(w - vol_b_shift(w)) for w in routes]
     best = best_r = None
-    for s in starts:
-        s = s.expand(torch.broadcast_shapes(n.shape, s.shape))
-        w_face = pocs(s, face_a, face_b)
-        for w2 in (w_face, touch(w_face), touch(s)):
-            r2 = resid(w2)
+    for k in range(starts.shape[-2]):
+        for w, r in zip(routes, resids):
+            w2, r2 = w[..., k, :], r[..., k]
             if best is None:
                 best, best_r = w2, r2
             else:
                 take = r2 < best_r - 1e-6
                 best = torch.where(take[..., None], w2, best)
                 best_r = torch.minimum(best_r, r2)
-    return best - 0.5 * shift
+    return best - 0.5 * shift[..., 0, :]
 
 
 # ---------------------------------------------------------------------------------

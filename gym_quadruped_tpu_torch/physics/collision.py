@@ -9,13 +9,17 @@ pair owns a fixed number of slots, always computed and masked later by
 the midpoint.
 
 Ported pair groups: plane against sphere, capsule, cylinder and box; world
-box against sphere and capsule; sphere-sphere, sphere-capsule,
-sphere-cylinder, sphere-box, capsule-capsule, capsule-cylinder and
-cylinder-cylinder (both as capsule pairs, the reference's approximation),
-capsule-box and cylinder-box (the CCD of physics/ccd.py) and box-box: every
-group of the flat scenes of go1, go2, aliengo, b2, hyqreal2 and spot and of
-go2's ramp, slippery and stairs and hyqreal2's random_boxes scenes.
-`collide` raises NotImplementedError for any other group (hfield, mesh).
+box against sphere and capsule; the heightfield against sphere (the
+sphere against the triangles of the cells under it), capsule (its end
+spheres and 5 interior samples), box and cylinder (one CCD contact per
+triangular prism of the footprint, plus 4 local samples); sphere-sphere,
+sphere-capsule, sphere-cylinder, sphere-box, capsule-capsule,
+capsule-cylinder and cylinder-cylinder (both as capsule pairs, the
+reference's approximation), capsule-box and cylinder-box (the CCD of
+physics/ccd.py) and box-box: every group of the flat and perlin scenes of
+go2, spot, aliengo, b2 and hyqreal2, of go1/flat, of go2's ramp, slippery
+and stairs and of hyqreal2's random_boxes. `collide` raises
+NotImplementedError for any other group (the mesh pairs).
 The slot layout (`contact_layout`) covers every pair type of the reference,
 so the static tables agree for every model.
 """
@@ -468,8 +472,9 @@ def _box_box(p1, R1, s1, p2, R2, s2, signs):
 
 
 class _Shape(NamedTuple):
-    """The support, face and clip functions of the convex geom A of the CCD
-    (ccd.py); `face(d, R)` gives the tuple that `clip_face` takes before d."""
+    """The support, face and clip functions of a convex geom of the CCD
+    (ccd.py), each taking (p, R, *sizes) after the direction or point;
+    `face(d, R)` gives the tuple that `clip_face` takes before d."""
 
     supval: Callable
     support: Callable
@@ -482,6 +487,9 @@ _CAPSULE = _Shape(ccd.supval_cap, ccd.support_cap, ccd.cap_face, ccd.clip_face_c
                   ccd.clip_into_cap)
 _CYLINDER = _Shape(ccd.supval_cyl, ccd.support_cyl, ccd.cyl_face, ccd.clip_face_cyl,
                    ccd.clip_into_cyl)
+_BOX = _Shape(ccd.supval_box, ccd.support_box, ccd.box_face,
+              lambda pt, p, R, size, mask, sgn, d: ccd.clip_face_box(pt, p, R, size, mask, sgn),
+              ccd.clip_into_box)
 
 
 def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
@@ -544,15 +552,388 @@ def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
                + ccd.support_box(-n0, p2, R2, size)),
         lambda pt: shape.clip_face(pt, p1, R1, radius, halflen, *face0, n0),
         lambda pt: ccd.clip_face_box(pt, p2, R2, size, f_mask, f_sgn))
-    face_p = shape.face(n_p, R1p)
-    bmask, bsgn = ccd.box_face(-n_p, R2p)
+    # the witness's 2 starts stacked on an axis after the 4 configurations
+    u = lambda x: x.unsqueeze(3)
+    face_p = [u(f) for f in shape.face(n_p, R1p)]
+    bmask, bsgn = (u(f) for f in ccd.box_face(-n_p, R2p))
+    p1s, R1s, p2s, R2s = u(p1p), u(R1p), u(p2p), u(R2p)
+    start = 0.5 * (xa + xb) + bias
     pos_p = ccd.witness(
-        n_p, depth_p, [0.5 * (xa + xb) + bias, w0[..., None, :]],
-        lambda pt: shape.clip_face(pt, p1p, R1p, rad1, hl1, *face_p, n_p),
-        lambda pt: ccd.clip_face_box(pt, p2p, R2p, size1, bmask, bsgn),
-        lambda pt: shape.clip_into(pt, p1p, R1p, rad1, hl1),
-        lambda pt: ccd.clip_into_box(pt, p2p, R2p, size1))
+        n_p, depth_p, torch.stack([start, w0[..., None, :].expand_as(start)], 3),
+        lambda pt: shape.clip_face(pt, p1s, R1s, rad2, hl2, *face_p, u(n_p)),
+        lambda pt: ccd.clip_face_box(pt, p2s, R2s, size2, bmask, bsgn),
+        lambda pt: shape.clip_into(pt, p1s, R1s, rad2, hl2),
+        lambda pt: ccd.clip_into_box(pt, p2s, R2s, size2))
     return ccd.manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p)
+
+
+# ---------------------------------------------------------------------------------
+# heightfield pairs: the terrain as a grid of cells, each split along its main
+# diagonal (c, r) -> (c + 1, r + 1) into two triangular prisms whose tops are
+# raised by the pair margin. hpos (..., 3) and hmat (..., 3, 3) are the
+# heightfield geom's pose; "local" is its frame.
+# ---------------------------------------------------------------------------------
+
+def _hf_grid(dm: DeviceModel):
+    """The heightfield's size (x half, y half, z top, z bottom), rows,
+    columns and its heights in [0, 1], flattened row-major."""
+    m = dm.m
+    return dm.hfield_size, int(m.hfield_nrow), int(m.hfield_ncol), dm.hfield_data.reshape(-1)
+
+
+def _hf_corner(dm: DeviceModel, jj, ii, top):
+    """(..., 3) local grid vertices at rows jj and columns ii (int64), their
+    heights raised by `top` (broadcasting against jj)."""
+    sz, nr, nc, data = _hf_grid(dm)
+    x = (ii.to(dm.dtype) / (nc - 1) * 2.0 - 1.0) * sz[0]
+    y = (jj.to(dm.dtype) / (nr - 1) * 2.0 - 1.0) * sz[1]
+    return torch.stack([x, y, data[jj * nc + ii] * sz[2] + top], -1)
+
+
+def _hf_cell(f, n, offset=0.0):
+    """The cell index (int64) of grid coordinate f, floor(f - offset),
+    clamped to [0, n - 2]."""
+    return torch.clamp(torch.floor(f - offset).long(), 0, n - 2)
+
+
+def hfield_height(dm: DeviceModel, x, y):
+    """Bilinear height of the heightfield's surface above its base at local
+    (x, y) (any shape), the grid coordinates clamped to [0, n - 1.001]."""
+    sz, nr, nc, data = _hf_grid(dm)
+    fx = torch.clamp((x / sz[0] + 1.0) * 0.5 * (nc - 1), 0.0, nc - 1.001)
+    fy = torch.clamp((y / sz[1] + 1.0) * 0.5 * (nr - 1), 0.0, nr - 1.001)
+    i, j = _hf_cell(fx, nc), _hf_cell(fy, nr)
+    tx, ty = fx - i, fy - j
+    h = lambda jj, ii: data[jj * nc + ii]
+    return (h(j, i) * (1 - tx) * (1 - ty) + h(j, i + 1) * tx * (1 - ty)
+            + h(j + 1, i) * (1 - tx) * ty + h(j + 1, i + 1) * tx * ty) * sz[2]
+
+
+def _closest_point_triangle(p, a, b, c):
+    """(closest point of triangle (a, b, c) to p, the point lies in the face
+    region), all (..., 3), Ericson's regions in order (vertex a, b, c, then
+    edges ab, ac, bc, else the face; an earlier region wins). Degenerate
+    edge denominators of exactly 0 are replaced by 1."""
+    ab, ac = b - a, c - a
+    ap, bp, cp = p - a, p - b, p - c
+    d1, d2 = _dot(ab, ap), _dot(ac, ap)
+    d3, d4 = _dot(ab, bp), _dot(ac, bp)
+    d5, d6 = _dot(ab, cp), _dot(ac, cp)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom_in = torch.clamp_min(va + vb + vc, 1e-30)
+    q = a + ab * (vb / denom_in)[..., None] + ac * (vc / denom_in)[..., None]
+    nz = lambda x: torch.where(x == 0, 1.0, x)
+    v_ab = torch.clamp(d1 / nz(d1 - d3), 0.0, 1.0)
+    w_ac = torch.clamp(d2 / nz(d2 - d6), 0.0, 1.0)
+    t_bc = torch.clamp((d4 - d3) / nz((d4 - d3) + (d5 - d6)), 0.0, 1.0)
+    in_a = (d1 <= 0) & (d2 <= 0)
+    in_b = (d3 >= 0) & (d4 <= d3)
+    in_c = (d6 >= 0) & (d5 <= d6)
+    on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    on_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    on_bc = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)
+    for region, point in ((on_bc, b + t_bc[..., None] * (c - b)), (on_ac, a + w_ac[..., None] * ac),
+                          (on_ab, a + v_ab[..., None] * ab), (in_c, c), (in_b, b), (in_a, a)):
+        q = torch.where(region[..., None], point, q)
+    return q, ~(in_a | in_b | in_c | on_ab | on_ac | on_bc)
+
+
+def _sphere_triangle(center, radius, a, b, c):
+    """(dist, pos, n) of a sphere against a triangle wound counter-clockwise
+    from +z, n from the triangle toward the center. Where the closest point
+    lies in the face region the distance is signed by the triangle's normal
+    (a center below the face is inside its prism); on an edge or vertex it
+    is unsigned (a center below the plane but off the footprint is not
+    inside this prism)."""
+    q, in_face = _closest_point_triangle(center, a, b, c)
+    n_tri = _cross(b - a, c - a)
+    n_tri = n_tri / torch.clamp_min(_norm(n_tri, keepdim=True), 1e-30)
+    dvec = center - q
+    dlen = _norm(dvec)
+    side = torch.sign(_dot(dvec, n_tri))
+    side = torch.where((side == 0) | ~in_face, 1.0, side)
+    n = torch.where((dlen > 1e-12)[..., None],
+                    side[..., None] * dvec / torch.clamp_min(dlen, 1e-12)[..., None], n_tri)
+    dist = side * dlen - radius
+    pos = center - n * (radius + 0.5 * dist)[..., None]
+    return dist, pos, n
+
+
+def _hfield_sphere(dm: DeviceModel, hpos, hmat, center, radius, margin):
+    """Sphere against the heightfield: 8 slots, the sphere against both
+    triangles of each cell of the 2 x 2 neighbourhood that the AABB of its
+    radius inflated by margin/2 spans (a cell clamped onto another at the
+    grid's border is dropped, dist 1e6). Tops raised by margin and radius
+    r + margin/2: MuJoCo's convex heightfield pipeline collides the
+    inflated sphere with raised prisms and reports that contact as it is.
+    center (..., 3), radius and margin tensors broadcasting against its
+    leading dims. Returns dist (..., 8), pos and n (..., 8, 3)."""
+    sz, nr, nc, _ = _hf_grid(dm)
+    local = ccd._dotR(center - hpos, hmat)
+    fx = (local[..., 0] / sz[0] + 1.0) * 0.5 * (nc - 1)
+    fy = (local[..., 1] / sz[1] + 1.0) * 0.5 * (nr - 1)
+    r_eff = radius + 0.5 * margin
+    rx = r_eff / sz[0] * 0.5 * (nc - 1)
+    ry = r_eff / sz[1] * 0.5 * (nr - 1)
+    i0, i1 = _hf_cell(fx, nc, rx), _hf_cell(fx, nc, -rx)
+    j0, j1 = _hf_cell(fy, nr, ry), _hf_cell(fy, nr, -ry)
+    ii = torch.stack([i0, i1, i0, i1], -1)                             # (..., 4) cells
+    jj = torch.stack([j0, j0, j1, j1], -1)
+    di, dj = i1 == i0, j1 == j0
+    dup = torch.stack([torch.zeros_like(di), di, dj, di | dj], -1)
+    top = margin[..., None]
+    v00, v10 = _hf_corner(dm, jj, ii, top), _hf_corner(dm, jj, ii + 1, top)
+    v01, v11 = _hf_corner(dm, jj + 1, ii, top), _hf_corner(dm, jj + 1, ii + 1, top)
+    tri = lambda x, y: torch.stack([x, y], -2).flatten(-3, -2)        # (..., 8, 3)
+    d, p, n = _sphere_triangle(local[..., None, :], r_eff[..., None],
+                               tri(v00, v00), tri(v10, v11), tri(v11, v01))
+    d = torch.where(dup.repeat_interleave(2, -1), 1e6, d)
+    hm = hmat[..., None, :, :]
+    return d, ccd._dotRT(p, hm) + hpos[..., None, :], ccd._dotRT(n, hm)
+
+
+def _hfield_point_contact(dm: DeviceModel, local, r_eff, margin):
+    """The deeper of a sphere of radius r_eff at local (..., 3) against the
+    two raised triangles of the cell under it (the first on ties): (dist,
+    pos, n), local frame."""
+    sz, nr, nc, _ = _hf_grid(dm)
+    i = _hf_cell((local[..., 0] / sz[0] + 1.0) * 0.5 * (nc - 1), nc)
+    j = _hf_cell((local[..., 1] / sz[1] + 1.0) * 0.5 * (nr - 1), nr)
+    v00, v10 = _hf_corner(dm, j, i, margin), _hf_corner(dm, j, i + 1, margin)
+    v01, v11 = _hf_corner(dm, j + 1, i, margin), _hf_corner(dm, j + 1, i + 1, margin)
+    d, p, n = _sphere_triangle(local[..., None, :], r_eff[..., None],
+                               torch.stack([v00, v00], -2), torch.stack([v10, v11], -2),
+                               torch.stack([v11, v01], -2))
+    take1 = d[..., 0] <= d[..., 1]
+    return (torch.where(take1, d[..., 0], d[..., 1]),
+            torch.where(take1[..., None], p[..., 0, :], p[..., 1, :]),
+            torch.where(take1[..., None], n[..., 0, :], n[..., 1, :]))
+
+
+def _capsule_ends(cpos, cmat, halflen):
+    """(B, G, 2, 3): the capsule's or cylinder's axis ends, + then -."""
+    axis = cmat[..., :, 2]
+    return torch.stack([cpos + axis * halflen[:, None], cpos + axis * (-1.0 * halflen)[:, None]], -2)
+
+
+def _hfield_capsule(dm: DeviceModel, hpos, hmat, cpos, cmat, radius, halflen, margin):
+    """Capsule against the heightfield: 16 + 5 slots. Its end spheres by
+    `_hfield_sphere` (16), then 5 interior axis samples at t = -2/3 ... 2/3
+    of the half-length, each a sphere against the raised triangles of the
+    cell under it, for a body lying across a ridge; a sample within 2 mm of
+    an end contact closer than margin + 1e-6 is dropped. All (B, G, ...)."""
+    d, p, n = _hfield_sphere(dm, hpos[:, :, None], hmat[:, :, None],
+                             _capsule_ends(cpos, cmat, halflen), radius[:, None], margin[:, None])
+    B, G = d.shape[:2]
+    d, p, n = d.reshape(B, G, 16), p.reshape(B, G, 16, 3), n.reshape(B, G, 16, 3)
+    ts = dm.const('capsule_samples', lambda: np.array([-2.0 / 3, -1.0 / 3, 0.0, 1.0 / 3, 2.0 / 3]))
+    centers = cpos[:, :, None] + (ts * halflen[:, None])[..., None] * cmat[:, :, None, :, 2]
+    hm = hmat[:, :, None]
+    di, pi, ni = _hfield_point_contact(dm, ccd._dotR(centers - hpos[:, :, None], hm),
+                                       (radius + 0.5 * margin)[:, None], margin[:, None])
+    pi = ccd._dotRT(pi, hm) + hpos[:, :, None]
+    ni = ccd._dotRT(ni, hm)
+    dd = _norm(pi[..., :, None, :] - p[..., None, :, :])               # (B, G, 5, 16)
+    dup = ((dd < 2e-3) & (d[..., None, :] < (margin + 1e-6)[:, None, None])).any(-1)
+    di = torch.where(dup, 1e6, di)
+    return torch.cat([d, di], -1), torch.cat([p, pi], -2), torch.cat([n, ni], -2)
+
+
+def _clip_into_prism(pt, verts, zbot):
+    """Approximate projection of pt (..., 3) into a heightfield prism (verts
+    (..., 6, 3), the top triangle first): onto the top plane from above,
+    then the triangle's footprint in the plane, then z clamped between the
+    base `zbot` and the top."""
+    v0, v1, v2 = verts[..., 0, :], verts[..., 1, :], verts[..., 2, :]
+    tn = _cross(v1 - v0, v2 - v1)
+    tn = tn * torch.sign(tn[..., 2:3])
+    tn = tn / torch.clamp_min(_norm(tn, keepdim=True), 1e-30)
+    exc = torch.clamp_min(_dot(pt - v0, tn), 0.0)
+    q = pt - exc[..., None] * tn
+    flat = lambda v: torch.cat([v[..., :2], torch.zeros_like(v[..., 2:])], -1)
+    qxy = ccd.clip_onto_triangle(flat(q), flat(v0), flat(v1), flat(v2))
+    zt = v0[..., 2] - (tn[..., 0] * (qxy[..., 0] - v0[..., 0])
+                       + tn[..., 1] * (qxy[..., 1] - v0[..., 1])) / torch.clamp_min(tn[..., 2], 1e-6)
+    z = torch.minimum(torch.clamp_min(q[..., 2], zbot), zt)
+    return torch.stack([qxy[..., 0], qxy[..., 1], z], -1)
+
+
+def _hfield_convex_ccd(dm: DeviceModel, hpos, hmat, gpos, gmat, margin, shape: _Shape, dims,
+                       rbound, n_span):
+    """A convex geom (box or cylinder: `shape`, its sizes `dims`, each (G,)
+    or (G, 3)) against the heightfield: _HF_CONVEX_K slots, one contact per
+    prism, as MuJoCo's convex heightfield pipeline emits them (its multiccd
+    does not apply here).
+
+    The footprint is n_span x n_span cells from the cell under the geom's
+    center less its bounding radius `rbound` (G,), clamped cells masked
+    out: P = 2 n_span^2 prisms of raised tops, bases at the heightfield's
+    bottom. Per prism, batched over (B, G, P): SAT over 20 candidate axes
+    (z, the top normal, the side normals, the geom's axes and the crosses
+    of the 3 top edges and z with each), 14 rounds of pattern refinement
+    and the snap onto the feature axes. Then the K deepest prisms by
+    repeated masked max, the lowest prism first on exact ties, masking only
+    the one taken (a feature shared by several prisms gives one contact per
+    prism); an empty pick has zero vertices and direction +z. Per taken
+    prism, batched over (B, G, K): the witness starts from the tied prism
+    vertex that moves least when clipped into the geom translated by the
+    depth, the geom's support point and their midpoint. The depth is the
+    one-hot product of the prism depths, as the reference takes it: NaN,
+    and the slot dropped, where any prism of the footprint is masked. dist
+    = -depth - margin/2 (dist 1e6 when not deeper than -margin). Returns
+    dist (B, G, K), pos and n (B, G, K, 3)."""
+    sz, nr, nc, _ = _hf_grid(dm)
+    lp = ccd._dotR(gpos - hpos, hmat)                                  # (B, G, 3)
+    lR = hmat.transpose(-1, -2) @ gmat                                 # (B, G, 3, 3)
+
+    def geom(k):
+        """The geom's local pose and sizes with k axes after (B, G)."""
+        one = (1,) * k
+        return (lp.reshape(lp.shape[:2] + one + (3,)), lR.reshape(lR.shape[:2] + one + (3, 3)),
+                *(x.reshape(x.shape[:1] + one + x.shape[1:]) for x in dims))
+
+    fx = (lp[..., 0] / sz[0] + 1.0) * 0.5 * (nc - 1)
+    fy = (lp[..., 1] / sz[1] + 1.0) * 0.5 * (nr - 1)
+    i0 = torch.floor(fx - rbound / sz[0] * 0.5 * (nc - 1)).long()[..., None]
+    j0 = torch.floor(fy - rbound / sz[1] * 0.5 * (nr - 1)).long()[..., None]
+    offs = np.arange(n_span)
+    i_off = i0 + dm.const(('hfield_di', n_span), lambda: np.tile(offs, n_span))
+    j_off = j0 + dm.const(('hfield_dj', n_span), lambda: np.repeat(offs, n_span))
+    ii, jj = torch.clamp(i_off, 0, nc - 2), torch.clamp(j_off, 0, nr - 2)   # (B, G, C)
+    is_dup = ((i_off != ii) | (j_off != jj)).repeat_interleave(2, -1)      # (B, G, P)
+    top = margin[:, None]
+    v00, v10 = _hf_corner(dm, jj, ii, top), _hf_corner(dm, jj, ii + 1, top)
+    v01, v11 = _hf_corner(dm, jj + 1, ii, top), _hf_corner(dm, jj + 1, ii + 1, top)
+    tops = torch.stack([torch.stack([v00, v10, v11], -2), torch.stack([v00, v11, v01], -2)],
+                       -3).flatten(-4, -3)                             # (B, G, P, 3, 3)
+    bases = tops.clone()
+    bases[..., 2] = -sz[3]
+    verts = torch.cat([tops, bases], -2)                               # (B, G, P, 6, 3)
+    vertex = verts[:, :, :, None].unbind(-2)       # 6 x (B, G, P, 1, 3)
+    g2 = geom(2)
+
+    def depth_fn(dirs):                     # (B, G, P, N, 3) -> (B, G, P, N)
+        # the prism's support value, a running max over its vertices (a
+        # batched matmul here splits into hundreds of small cuBLAS calls)
+        sa = _dot(dirs, vertex[0])
+        for v in vertex[1:]:
+            sa = torch.maximum(sa, _dot(dirs, v))
+        return sa + shape.supval(-dirs, *g2)
+
+    e0 = tops[..., 1, :] - tops[..., 0, :]
+    e1 = tops[..., 2, :] - tops[..., 1, :]
+    e2 = tops[..., 0, :] - tops[..., 2, :]
+    zax = torch.zeros_like(e0)
+    zax[..., 2] = 1.0
+    top_n = _cross(e0, e1)
+    cands = [zax, top_n, _cross(e0, zax), _cross(e1, zax), _cross(e2, zax)]
+    for i in range(3):
+        g = lR[:, :, None, :, i].expand_as(e0)
+        cands += [g] + [_cross(e, g) for e in (e0, e1, e2, zax)]
+    d0_depth, d0 = ccd.best_axis(depth_fn, torch.stack(cands, -2))
+    depths, dirs = ccd.pattern_refine(depth_fn, d0, d0_depth, rounds=14)
+    top_u = top_n / torch.clamp_min(_norm(top_n, keepdim=True), 1e-12)
+    axes0 = torch.cat([zax[..., None, :], top_u[..., None, :],
+                       lR.transpose(-1, -2)[:, :, None].expand_as(tops)], -2)
+    depths, dirs = ccd.snap_polish(depth_fn, depths, dirs, axes0)
+    depths = torch.where(is_dup, -torch.inf, depths)                   # (B, G, P)
+
+    remaining, ohs = depths, []
+    for _ in range(_HF_CONVEX_K):
+        sel = (remaining >= remaining.amax(-1, keepdim=True)) & torch.isfinite(remaining)
+        sel = sel.to(depths.dtype)
+        oh = (torch.cumsum(sel, -1) <= 1.0) * sel
+        ohs.append(oh)
+        remaining = torch.where(oh > 0.5, -torch.inf, remaining)
+    oh = torch.stack(ohs, -2)                                          # (B, G, K, P)
+    picked = oh.sum(-1) > 0.5
+    idx = ccd._first_true(oh > 0.5)
+    verts_k = torch.where(picked[..., None, None], torch.take_along_dim(
+        verts, idx[..., None, None], dim=2), 0.0)                # (B, G, K, 6, 3)
+    depth_k = (oh * depths[:, :, None]).sum(-1)
+    dir_k = torch.where(picked[..., None], torch.take_along_dim(dirs, idx[..., None], dim=2), 0.0)
+    dn = _norm(dir_k, keepdim=True)
+    dir_k = torch.where(dn > 1e-6, dir_k / torch.clamp_min(dn, 1e-12), zax[:, :, :1])
+    got = picked & (depth_k > -margin[:, None])
+
+    g1, g2 = geom(1), geom(2)
+    face_k = shape.face(-dir_k, g1[1])
+    # the support tie: with dir_k perpendicular to a prism edge, several
+    # vertices are extreme, and only the one inside the geom translated by
+    # the depth (the touch lens) is where the two touch
+    vals = (verts_k * dir_k[..., None, :]).sum(-1)                     # (B, G, K, 6)
+    tied = vals >= vals.amax(-1, keepdim=True) - 1e-9
+    shift_k = (depth_k[..., None] * dir_k)[..., None, :]
+    moved = _norm(shape.clip_into(verts_k - shift_k, *g2) + shift_k - verts_k)
+    score = torch.where(tied, moved, torch.inf)
+    vsel = (score <= score.amin(-1, keepdim=True)).to(depths.dtype)
+    vsel = vsel * (torch.cumsum(vsel, -1) <= 1.0)
+    xa = (vsel[..., None] * verts_k).sum(-2)
+    xb = shape.support(-dir_k, *g1)
+    # the three starts stacked on an axis after K: the clips broadcast over it
+    vs = verts_k.unsqueeze(3)
+    face_s = [f.unsqueeze(3) for f in face_k]
+    pos_k = ccd.witness(
+        dir_k, depth_k, torch.stack([xa, xb, 0.5 * (xa + xb)], 3),
+        lambda pt: ccd.clip_onto_triangle(pt, vs[..., 0, :], vs[..., 1, :], vs[..., 2, :]),
+        lambda pt: shape.clip_face(pt, *g2, *face_s, -dir_k.unsqueeze(3)),
+        lambda pt: _clip_into_prism(pt, vs, -sz[3]),
+        lambda pt: shape.clip_into(pt, *g2))
+    d = torch.where(got, -depth_k - 0.5 * margin[:, None], 1e6)
+    hm = hmat[:, :, None]
+    return d, ccd._dotRT(pos_k, hm) + hpos[:, :, None], ccd._dotRT(dir_k, hm)
+
+
+def hfield_span(m: Model, geom_ids) -> int:
+    """Static per-axis footprint cell count of a group of heightfield-convex
+    pairs: the group's largest circumscribed diameter over the cell, + 2,
+    at most 8."""
+    cell = 2.0 * float(np.min(np.asarray(m.hfield_size)[:2])) / \
+        (min(m.hfield_nrow, m.hfield_ncol) - 1)
+    rmax = float(np.max(np.linalg.norm(np.asarray(m.geom_size)[np.asarray(geom_ids)], axis=-1)))
+    return min(int(np.ceil(2.0 * rmax / cell)) + 2, 8)
+
+
+def _merge_local_samples(margin, dc, pc, nc_, d4, p4, n4):
+    """The CCD's slots (B, G, K) and the 4 local samples' (B, G, 4), world
+    frame: a CCD contact within 2 mm of a sample closer than margin + 1e-6
+    is dropped (the sample, measured locally as MuJoCo's pipeline measures,
+    wins)."""
+    dd = _norm(p4[..., :, None, :] - pc[..., None, :, :])              # (B, G, 4, K)
+    dup = ((dd < 2e-3) & (d4[..., None] < (margin + 1e-6)[:, None, None])).any(-2)
+    return (torch.cat([torch.where(dup, 1e6, dc), d4], -1), torch.cat([pc, p4], -2),
+            torch.cat([nc_, n4], -2))
+
+
+def _hfield_box(dm: DeviceModel, hpos, hmat, bpos, bmat, size, margin, n_span, signs):
+    """Box against the heightfield: the per-prism CCD (8 slots), then the
+    4 deepest of the box's 8 corners, each a point (radius margin/2)
+    against the raised triangles of its cell, merged
+    (`_merge_local_samples`): 12 slots."""
+    dc, pc, nc_ = _hfield_convex_ccd(dm, hpos, hmat, bpos, bmat, margin, _BOX, (size,),
+                                     _norm(size), n_span)
+    hm = hmat[:, :, None]
+    local = ccd._dotR(_box_corners(bpos, bmat, size, signs) - hpos[:, :, None], hm)
+    d, p, n = _hfield_point_contact(dm, local, (0.5 * margin)[:, None], margin[:, None])
+    d4, p4, n4 = _deepest_k(d, p, n, 4)
+    return _merge_local_samples(margin, dc, pc, nc_, d4, ccd._dotRT(p4, hm) + hpos[:, :, None],
+                                ccd._dotRT(n4, hm))
+
+
+def _hfield_cylinder(dm: DeviceModel, hpos, hmat, cpos, cmat, radius, halflen, margin, n_span):
+    """Cylinder against the heightfield: the per-prism CCD (8 slots), then
+    the 4 deepest of its end spheres' 16 `_hfield_sphere` slots, merged
+    (`_merge_local_samples`): 12 slots."""
+    dc, pc, nc_ = _hfield_convex_ccd(dm, hpos, hmat, cpos, cmat, margin, _CYLINDER,
+                                     (radius, halflen),
+                                     torch.sqrt(radius * radius + halflen * halflen), n_span)
+    d, p, n = _hfield_sphere(dm, hpos[:, :, None], hmat[:, :, None],
+                             _capsule_ends(cpos, cmat, halflen), radius[:, None], margin[:, None])
+    B, G = d.shape[:2]
+    d4, p4, n4 = _deepest_k(d.reshape(B, G, 16), p.reshape(B, G, 16, 3), n.reshape(B, G, 16, 3), 4)
+    return _merge_local_samples(margin, dc, pc, nc_, d4, p4, n4)
 
 
 # ---------------------------------------------------------------------------------
@@ -600,9 +981,11 @@ class Contacts:
         return self.feat[:, 4:7].transpose(1, 2)
 
 
-def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2):
+def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2, margin, span):
     """One pair group's (dist (B, G, k), pos, normal (B, G, k, 3)), or
-    NotImplementedError for a pair type that is not ported."""
+    NotImplementedError for a pair type that is not ported. margin (G,) is
+    the pairs' margin, span the static footprint of a heightfield-convex
+    group (`hfield_span`)."""
     signs = dm.const('box_corner_signs', lambda: _BOX_CORNER_SIGNS)
     up = dm.const('up', lambda: np.array([0.0, 0.0, 1.0]))   # normal of coincident centers
     if key == (GEOM_PLANE, GEOM_SPHERE):
@@ -618,6 +1001,15 @@ def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2):
     if key == (GEOM_BOX, GEOM_CAPSULE):          # world box: the CCD runs capsule first
         d, p, n = _ccd_box(_CAPSULE, p2, R2, s2[:, 0], s2[:, 1], p1, R1, s1, signs)
         return d, p, -n
+    # the heightfield: the margin bias of MuJoCo's convex heightfield pipeline
+    if key == (GEOM_HFIELD, GEOM_SPHERE):
+        return _hfield_sphere(dm, p1, R1, p2, s2[:, 0], margin)
+    if key == (GEOM_HFIELD, GEOM_CAPSULE):
+        return _hfield_capsule(dm, p1, R1, p2, R2, s2[:, 0], s2[:, 1], margin)
+    if key == (GEOM_HFIELD, GEOM_BOX):
+        return _hfield_box(dm, p1, R1, p2, R2, s2, margin, span, signs)
+    if key == (GEOM_HFIELD, GEOM_CYLINDER):
+        return _hfield_cylinder(dm, p1, R1, p2, R2, s2[:, 0], s2[:, 1], margin, span)
     # robot-robot pairs, type1 <= type2, normal geom1 -> geom2
     if key == (GEOM_SPHERE, GEOM_SPHERE):
         return _sphere_sphere(p1, s1[:, 0], p2, s2[:, 0], up)
@@ -642,24 +1034,38 @@ def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2):
     t1, t2 = key
     raise NotImplementedError(
         f'narrow phase for {_GEOM_NAMES.get(t1, t1)}-{_GEOM_NAMES.get(t2, t2)} pairs '
-        f'is not ported (ported: plane against sphere, capsule, cylinder and box; world '
-        f'box against sphere and capsule; sphere, capsule, cylinder and box pairs of the '
+        f'is not ported (mesh pairs are not; ported: plane against sphere, capsule, '
+        f'cylinder and box; world box against sphere and capsule; the heightfield against '
+        f'sphere, capsule, cylinder and box; sphere, capsule, cylinder and box pairs of the '
         f'robot)')
+
+
+@functools.lru_cache(maxsize=64)
+def _hfield_spans(m: Model) -> dict:
+    """{(t1, t2): `hfield_span`} of the model's heightfield-convex groups."""
+    return {(t1, t2): hfield_span(m, g2) for t1, t2, _, g2 in _pair_groups(m)
+            if t1 == GEOM_HFIELD and t2 in (GEOM_BOX, GEOM_CYLINDER)}
 
 
 def group_args(dm: DeviceModel, kin):
     """For each pair-type group in slot order, the arguments of its `_group`
-    call on FK results (B envs): the poses and sizes of its geoms 1 and 2
-    (the sizes are static, gathered once)."""
+    call on FK results (B envs): the poses and sizes of its geoms 1 and 2,
+    the pairs' margins (the sizes and margins are static, gathered once) and
+    the group's heightfield footprint span (None for other groups)."""
     m = dm.m
+    specs, first = contact_layout(m), 0
     for t1, t2, g1, g2 in _pair_groups(m):
         key = (t1, t2)
+        margins = np.array([s.margin for s in specs[first:first + len(g1)]])
+        first += len(g1)
         i1 = dm.const(('pair_g1', key), lambda: g1)
         i2 = dm.const(('pair_g2', key), lambda: g2)
         s1 = dm.const(('pair_size1', key), lambda: m.geom_size[g1])
         s2 = dm.const(('pair_size2', key), lambda: m.geom_size[g2])
+        margin = dm.const(('pair_margin', key), lambda: margins)
         yield (dm, key, kin.geom_xpos[:, i1], kin.geom_xmat[:, i1], s1,
-               kin.geom_xpos[:, i2], kin.geom_xmat[:, i2], s2)
+               kin.geom_xpos[:, i2], kin.geom_xmat[:, i2], s2, margin,
+               _hfield_spans(m).get(key))
 
 
 def collide(dm: DeviceModel, kin) -> Contacts:

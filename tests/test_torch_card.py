@@ -1,6 +1,7 @@
 """The port on the card: the CUDA SPD kernel and the fused Newton kernel
 against their plain versions, a short f32 run of the step on the card
-against the same steps in f64 on the CPU, and the env layer on the card
+against the same steps in f64 on the CPU (go2/perlin's from the keyframe
+lifted out of the terrain and lowered onto it), and the env layer on the card
 (go2/flat reset and steps, launches per step, card against CPU f64). Every
 test here needs an NVIDIA GPU and skips without one.
 
@@ -23,6 +24,7 @@ from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
+from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask
 
 
 @pytest.fixture
@@ -208,13 +210,30 @@ def test_newton_kernel_residency(card):
     assert blocks * envs >= 16, (blocks, envs, smem)
 
 
-def _card_against_cpu(card, robot, T=20):
+def _terrain_start(dm):
+    """The keyframe, which starts buried in a heightfield, lifted out of it
+    by the env's rule, then lowered along the nearest foot's normal until
+    that foot presses 1 mm into it (chip_smoke.py's start on the perlin
+    scenes)."""
+    key = torch.as_tensor(dm.m.key_qpos[:1], dtype=dm.dtype)
+    lifted, _ = QuadrupedEnv(dm.m.robot, scene=dm.m.scene, model=dm)._lift_until_no_contact(key)
+    con = collision.collide(dm, kinematics.fk(dm, lifted))
+    foot = torch.as_tensor(np.any(feet_slot_mask(dm.m) > 0, axis=0))
+    i = int(torch.where(foot, con.dist[0], torch.inf).argmin())
+    start = lifted[0].numpy().copy()
+    start[2] -= max(0.0, float(con.dist[0, i] / con.normal[0, i, 2])) + 0.001
+    return start
+
+
+def _card_against_cpu(card, robot, T=20, scene='flat'):
     B = 64
-    dm = load_model(robot, 'flat', device=card)
-    dm64 = load_model(robot, 'flat', device='cpu', dtype=torch.float64)
+    dm = load_model(robot, scene, device=card)
+    dm64 = load_model(robot, scene, device='cpu', dtype=torch.float64)
     nv = dm.m.nv
     ctrls = np.random.RandomState(0).uniform(-2, 2, (T, B, dm.m.nu))
     qpos = np.tile(dm.m.key_qpos[0], (B, 1))
+    if scene == 'perlin':
+        qpos = np.tile(_terrain_start(dm64), (B, 1))
     q, v, w = (torch.as_tensor(x, dtype=torch.float32, device=card)
                for x in (qpos, np.zeros((B, nv)), np.zeros((B, nv))))
     q64, v64, w64 = (torch.as_tensor(x) for x in (qpos, np.zeros((B, nv)), np.zeros((B, nv))))
@@ -244,6 +263,12 @@ def test_step_on_card_matches_cpu_f64(card):
 @pytest.mark.cuda
 def test_step_on_card_matches_cpu_f64_go2(card):
     _card_against_cpu(card, 'go2')
+
+
+@pytest.mark.cuda
+def test_step_on_card_matches_cpu_f64_go2_perlin(card):
+    # from the keyframe lifted out of the terrain and lowered onto it
+    _card_against_cpu(card, 'go2', scene='perlin')
 
 
 @pytest.mark.cuda

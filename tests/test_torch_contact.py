@@ -125,10 +125,10 @@ def test_unported_branches_raise():
         jm = jload(robot, scene)
         return jm, to_device(from_arrays({f.name: getattr(jm, f.name)
                                           for f in dataclasses.fields(jm)}), 'cpu', torch.float64)
-    # go2/perlin's heightfield groups are not ported
-    jm, dm = port('go2', 'perlin')
+    # mini_cheetah/flat's mesh groups (plane-mesh first) are not ported
+    jm, dm = port('mini_cheetah', 'flat')
     q = torch.as_tensor(jm.key_qpos[:1])
-    with pytest.raises(NotImplementedError, match='hfield'):
+    with pytest.raises(NotImplementedError, match='plane-mesh'):
         pcol.collide(dm, pkin.fk(dm, q))
     # go1/flat's narrow phase is, but not its frictionless (condim 1) contact
     # rows, the reference's per-slot loop
