@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --newton-agreement   # phases 1 and 5 alone
     python3 chip_smoke.py --terrain            # phases 1-2 and 35-41 alone
+    python3 chip_smoke.py --sensors            # phases 1-2 and 42-46 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -124,6 +125,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      prisms per heightfield-box pair), 20 steps each at B=4096 from their
      start on the terrain: steps/s, peak memory, launches, finite, and each
      narrow-phase group's stream and host ms.
+ 42. BASELINE cfg3: `QuadrupedEnv('aliengo', scene='flat', sensors=(IMU,
+     HeightMap))` (noise and bias rate 0.01, a 10 x 10 grid of 0.1 m), the
+     example's six observables, per-env friction U(0.5, 1.5): a random reset
+     of B=4096, 100 `env.step` with seeded U(-2, 2) torques and the
+     generator, beside the same env without sensors from the same state in
+     this call (env-steps/s; the sensors' ms per step); the profiler range
+     `sensors` (host and device ms), peak memory; exactly 2 SPD and 1
+     Newton launch per step, no more host syncs than the sensorless
+     env.step, every observable finite and of its dim, height_map_z 0 on
+     the floor, imu_acc of envs standing still (over 10 more steps) near
+     +9.81 along the site's z; both kernels timed on the last step;
+ 43. card against CPU: 16 envs of phase 42 at step 50, the IMU's noise 0,
+     moved to the origin, 20 env.steps on the card and in f64 on the CPU at
+     a Newton cap of 30: qpos within 1e-3, height_map_z, imu_gyro and imu_acc
+     within SENSOR_BARS; the cap-10 readings beside them;
+ 44. aliengo/perlin's env with IMU and HeightMap (random reset, 20 steps at
+     B=4096: env-steps/s, peak memory), every env's height_map_z against
+     the heightfield's height at the grid points; hyqreal2/random_boxes' env
+     with HeightMap alone (409,600 rays against 100 boxes per step), 20
+     steps;
+ 45. Camera(64 x 48, robotcam).render of all 4096 envs of phases 42 (flat)
+     and 44 (perlin): ms per render, peak memory, depth finite and >= 0, seg
+     ids in [-1, ngeom), the shares of pixels on the terrain and the robot;
+     4 envs against CPU f64 (depth and point cloud on the pixels whose seg
+     agrees, the share whose seg differs);
+ 46. the aliengo/flat env with Camera(auto_render=True, fps=30), 50 steps
+     at B=4096: the renders against the reference's rule worked out on the
+     host, 2 SPD + 1 Newton launches per step; rollout_with_sensors
+     rendering every 17 steps over the same states gives the same depth.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -152,13 +182,20 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from gym_quadruped_tpu_torch.env import ALL_OBS, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
-from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step
+from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
+from gym_quadruped_tpu_torch.env.state import tensor_fields
 from gym_quadruped_tpu_torch.models.model import GEOM_HFIELD, load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
-from gym_quadruped_tpu_torch.physics.constraints import constraint_layout, pyramidal_rows
+from gym_quadruped_tpu_torch.physics.constraints import (
+    constraint_layout,
+    pyramidal_rows,
+    runtime_con_mu,
+)
 from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask
+from gym_quadruped_tpu_torch.physics.raycast import world_geoms
+from gym_quadruped_tpu_torch.sensors import IMU, Camera, HeightMap
 
 SEED = 0
 BATCH = 4096
@@ -946,9 +983,13 @@ def host_ms(fn, repeats=3):
 
 
 def all_finite(state, obs):
-    """A device bool: every float of the state and the observations finite."""
-    ok = torch.ones((), dtype=torch.bool, device='cuda')
-    for x in [getattr(state, f.name) for f in dataclasses.fields(state)] + list(obs.values()):
+    """A device bool: every float of the state (its sensor states too) and
+    the observations finite. The IMU's readings start as NaN until its first
+    reading, which `reset` takes."""
+    ok = torch.ones((), dtype=torch.bool, device=state.qpos.device)
+    tensors = [getattr(state, f.name) for f in tensor_fields(state)] + list(obs.values())
+    tensors += [getattr(ss, f.name) for ss in state.sensors for f in dataclasses.fields(ss)]
+    for x in tensors:
         if x.is_floating_point():
             ok = ok & torch.isfinite(x).all()
     return ok
@@ -1259,12 +1300,545 @@ def terrain_phases(spd_fields, newton_fields, rates):
         newton_fields[f'{robot}_perlin_launches'] = launches['newton_fused']
 
 
+# ---- phases 42-46: the sensors (BASELINE cfg3) -----------------------------------------
+
+# the device of phases 42-46: chip_rehearse.py sets 'cpu' to run them on the
+# CPU at a small batch, with the torch.cuda calls stubbed
+DEVICE = 'cuda'
+# BASELINE cfg3's sensors and observables (examples/aliengo_with_sensors.py)
+SENSOR_OBS = ('qpos', 'qvel', 'imu_acc', 'imu_gyro', 'imu_acc_bias', 'height_map_z')
+IMU_KW = {'accel_noise': 0.01, 'gyro_noise': 0.01, 'accel_bias_rate': 0.01, 'gyro_bias_rate': 0.01}
+IMU_QUIET = {k: 0.0 for k in IMU_KW}
+HEIGHTMAP_KW = {'num_rows': 10, 'num_cols': 10, 'dist_x': 0.1, 'dist_y': 0.1}
+CAMERA_KW = {'width': 64, 'height': 48, 'cam_name': 'robotcam'}
+SENSOR_STEPS = 100
+SENSOR_CPU_START = 50
+# Phase 43, card f32 against CPU f64 over CPU_STEPS env steps at the Newton
+# cap of 30, the largest difference over the steps relative to 1 + max|f64|.
+# The bars are about 60-200 times what the CPU f32 run of the phase read
+# (chip_rehearse.py, B=32): 0 (the floor is at 0), 1.7e-6 and 4.9e-6.
+SENSOR_BARS = {'height_map_z': 1e-5, 'imu_gyro': 1e-4, 'imu_acc': 1e-3}
+# Phase 45, card f32 against CPU f64 on 4 envs, on the pixels whose seg
+# agrees and whose depth is under NEAR_DEPTH (m): depth and point cloud
+# within DEPTH_REL_BAR of the depth. Farther pixels are grazing hits on the
+# plane (kilometres away), where a ray's f32 direction moves the hit by ~1e-7 of
+# depth^2 / camera height: reported apart. At most SEG_SHARE_BAR of the
+# pixels may differ in seg (silhouettes, ties between geoms). The CPU f32
+# run (chip_rehearse.py, B=32) found 1.6e-5 of the depth at most on the near
+# pixels, 9.5e-5 on the far ones (up to 17 km), and no seg differing.
+NEAR_DEPTH = 50.0
+DEPTH_REL_BAR = 1e-3
+SEG_SHARE_BAR = 1e-3
+# Phase 42's accelerometer check. The reading less its bias and noise is the
+# trunk's specific force within IMU_FORCE_BAR of 1 + its size (f32 rounding
+# of two formulas). An env stands still in a step when its base moves slower
+# than STILL_SPEED (m/s, rad/s) and accelerates less than STILL_ACC (m/s^2,
+# rad/s^2); there the raw reading is 9.81 along the site's z within
+# IMU_STILL_BAR: the noise (0.01) and the bias, a random walk of 0.01 a step
+# (0.1 after 100 steps), plus the motion the thresholds let through.
+IMU_FORCE_BAR = 1e-3
+STILL_SPEED, STILL_ACC = 0.05, 0.5
+IMU_STILL_BAR = 0.6
+
+
+def sync():
+    if torch.device(DEVICE).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def cfg3_env(dm, **over):
+    """BASELINE cfg3's env on `dm`: forward commands U(0, 1) m/s, per-env
+    friction U(0.5, 1.5), the IMU and the 10 x 10 heightmap, the example's
+    six observables; `over` replaces any of these arguments."""
+    kw = dict(scene=dm.m.scene, model=dm, base_vel_command_type='forward',
+              ref_base_lin_vel=(0.0, 1.0), ground_friction_coeff=(0.5, 1.5),
+              state_obs_names=SENSOR_OBS, sensors=(IMU, HeightMap),
+              sensors_kwargs=(IMU_KW, HEIGHTMAP_KW))
+    kw.update(over)
+    return QuadrupedEnv(dm.m.robot, **kw)
+
+
+def check_obs(env, obs, where):
+    """Every observable finite and of its observation_space_dims width."""
+    dims = env.observation_space_dims()
+    for name, v in obs.items():
+        if v.shape[1:] != (dims[name],):
+            raise AssertionError(f'{where}: observable {name} of shape {tuple(v.shape)}, '
+                                 f'expected (B, {dims[name]})')
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f'{where}: observable {name} is not finite')
+
+
+def sensors_range_ms(env, state, action, gen, n_steps=3):
+    """(host ms, device ms) per env.step of the profiler range `sensors`,
+    over n_steps steps, or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            state = env.step(state, action, gen)[0]
+        sync()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages() if e.key == 'sensors' and e.device_type != cuda]
+    if not ev:
+        return None, None
+    dev_ms = ev[0].device_time_total / 1e3 / n_steps
+    return ev[0].cpu_time_total / 1e3 / n_steps, (dev_ms if dev_ms > 0 else None)
+
+
+def imu_against_rigid_body(env, state, actions, gen, n):
+    """n more steps of the cfg3 env, the accelerometer held against the
+    trunk's rigid-body motion: at every env, the reading less its bias and
+    noise against the site's specific force R_site^T (a + alpha x r + omega
+    x (omega x r) + 9.81 z), a, omega and alpha the base's from the free
+    joint's qvel and the step's qacc, r the site's offset from the base (a
+    formula apart from the IMU's spatial-vector chain), relative to 1 + its
+    size; and the envs standing still (base speed under STILL_SPEED and
+    acceleration under STILL_ACC, linear and angular) read +9.81 along the
+    site's z within IMU_STILL_BAR, noise and bias included. Returns (max
+    relative diff, env-steps standing still, max |imu_acc - 9.81 z_site|
+    there)."""
+    dm = env.model
+    imu = env.sensors[0]
+    base = int(dm.m.jnt_bodyid[0])
+    if imu.body_id != base:
+        raise AssertionError('the IMU site is not on the free-joint body')
+    g = torch.tensor([0.0, 0.0, 9.81], dtype=dm.dtype, device=DEVICE)
+    cross = torch.linalg.cross
+    worst, still, worst_still = 0.0, 0, 0.0
+    for t in range(n):
+        prev = state
+        state, obs = env.step(state, actions[t], gen)[:2]
+        kin = kinematics.fk(dm, prev.qpos)
+        R_site, Rb = kin.site_xmat[:, imu.site_id], kinematics.quat_to_mat(prev.qpos[:, 3:7])
+        w = (Rb @ prev.qvel[:, 3:6, None])[..., 0]
+        alpha = (Rb @ state.qacc[:, 3:6, None])[..., 0]
+        r = kin.site_xpos[:, imu.site_id] - prev.qpos[:, :3]
+        a = state.qacc[:, :3] + cross(alpha, r) + cross(w, cross(w, r)) + g
+        force = (a[:, :, None] * R_site).sum(1)                        # R_site^T a
+        ss = state.sensors[0]
+        diff = (ss.acc - ss.acc_bias - ss.acc_noise - force).abs().amax(-1)
+        worst = max(worst, (diff / (1 + force.abs().amax(-1))).max().item())
+        standing = ((prev.qvel[:, :6].abs().amax(-1) < STILL_SPEED)
+                    & (state.qacc[:, :6].abs().amax(-1) < STILL_ACC))
+        still += int(standing.sum())
+        if bool(standing.any()):
+            rest = (obs['imu_acc'] - 9.81 * R_site[:, 2, :]).abs().amax(-1)
+            worst_still = max(worst_still, rest[standing].max().item())
+    return worst, still, worst_still
+
+
+def sensors_main_path(phase=42, B=BATCH, steps=SENSOR_STEPS):
+    """Phase 42: BASELINE cfg3, aliengo/flat through QuadrupedEnv with the IMU
+    (noise and bias rate 0.01) and the 10 x 10 heightmap, the example's six
+    observables, per-env friction U(0.5, 1.5): a random reset of B envs,
+    then `steps` env.step with seeded U(-2, 2) torques and the generator.
+    Beside it the same env without sensors from the same state in this
+    call, so that the sensors' cost per step is one subtraction; the
+    sensors' host and device ms (profiler range `sensors`); peak memory.
+    Checks: exactly 2 SPD and 1 Newton launch per step (counts set to 0 just
+    before the steps and read just after), no more host syncs than the
+    sensorless env.step, every observable finite and of its dim,
+    height_map_z 0 on the flat floor, and on envs standing still imu_acc
+    near +9.81 along the site's z. Keeps N_CPU_ENVS envs at step
+    SENSOR_CPU_START for phase 43; times both kernels on the last step."""
+    dm = load_model('aliengo', 'flat', device=DEVICE)
+    env, bare = cfg3_env(dm), cfg3_env(dm, state_obs_names=('qpos', 'qvel'), sensors=None)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, obs = env.reset(gen, B)
+    sync()
+    reset_s = time.perf_counter() - t0
+    log(phase, f'aliengo/flat env with IMU and HeightMap, reset B={B}: {reset_s:.3f} s, '
+               f'{env.lift_rounds} rounds of the lift out of contact; on {smi()}')
+    actions = torch.rand(steps + 10, B, dm.m.nu, generator=gen, device=DEVICE) * 4.0 - 2.0
+    plain = dataclasses.replace(state, sensors=())
+
+    def run_bare(plain, ts):        # with the main path's finiteness checks
+        ok = torch.ones((), dtype=torch.bool, device=DEVICE)
+        sync()
+        t0 = time.perf_counter()
+        for t in ts:
+            plain, o = bare.step(plain, actions[t])[:2]
+            ok &= all_finite(plain, o)
+        sync()
+        if not bool(ok):
+            raise AssertionError('a state of the sensorless cfg3 env is not finite')
+        return plain, time.perf_counter() - t0
+
+    # the sensorless env runs half its steps before the main path, half after
+    plain, bare_before = run_bare(plain, range(steps // 2))
+    finite = all_finite(state, obs)
+    per_step, kept = [], None
+    sync()
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if t == SENSOR_CPU_START:
+            kept = state.map(lambda x: x[:N_CPU_ENVS].clone())
+        before = spd.launches, nf.launches
+        prev = state
+        state, obs, reward, term, trunc, info = env.step(state, actions[t], gen)
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        finite &= all_finite(state, obs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    plain, bare_after = run_bare(plain, range(steps // 2, steps))
+    rate = steps / wall
+    bare_rate = (steps // 2 * 2) / (bare_before + bare_after)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(phase, f'aliengo/flat env.step with sensors B={B} f32: {steps} steps in {wall:.3f} s = '
+               f'{rate:.3f} steps/s = {B * rate:.1f} env-steps/s; without sensors in this call, '
+               f'{steps // 2} steps before and {steps // 2} after: {bare_rate:.3f} steps/s = '
+               f'{B * bare_rate:.1f} env-steps/s ({1e3 * bare_before / (steps // 2):.2f} and '
+               f'{1e3 * bare_after / (steps // 2):.2f} ms per step; with/without '
+               f'{rate / bare_rate:.3f}, the sensors cost {1e3 / rate - 1e3 / bare_rate:.2f} ms '
+               f'per step); peak device memory from the reset on {peak:.3f} GiB; on {smi()}')
+    log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
+               f'{launches["newton_fused"]} (per step {sorted(set(per_step))}); terminated at the '
+               f'last step {int(term.sum())} of {B}; mean base height '
+               f'{state.qpos[:, 2].mean().item():.4f}')
+    if not bool(finite):
+        raise AssertionError('a state or observation of the cfg3 env is not finite')
+    if any(k != (2, 1) for k in per_step):
+        raise AssertionError(f'expected 2 spd_solve and 1 newton_fused launch per env.step, got '
+                             f'{sorted(set(per_step))}')
+    check_obs(env, obs, 'aliengo/flat with sensors')
+    if not bool((obs['height_map_z'] == 0).all()):
+        raise AssertionError('height_map_z is not 0 on the flat floor')
+    host, device = sensors_range_ms(env, state, actions[-1], gen)
+    action = actions[-1]
+    one = {'with': [], 'without': []}
+    for _ in range(5):        # one synchronised env.step each, in turns
+        one['with'].append(host_ms(lambda: env.step(state, action, gen), repeats=1))
+        one['without'].append(host_ms(lambda: bare.step(plain, action), repeats=1))
+    one = {k: float(np.median(v)) for k, v in one.items()}
+    log(phase, f'profiler range sensors (IMU and HeightMap) per env.step: host '
+               f'{host:.3f} ms, device {device if device is None else f"{device:.3f}"} ms; one '
+               f'synchronised env.step, in turns (median of 5): with sensors {one["with"]:.2f} ms, '
+               f'without {one["without"]:.2f} ms; on {smi()}')
+    env_syncs = sync_count(lambda: env.step(state, action, gen))
+    bare_syncs = sync_count(lambda: bare.step(dataclasses.replace(state, sensors=()), action))
+    log(phase, f'host synchronisations reported per call: env.step with sensors {env_syncs[0]}, '
+               f'without {bare_syncs[0]} (first: {env_syncs[1] or bare_syncs[1]})')
+    if env_syncs[0] > bare_syncs[0]:
+        raise AssertionError(f'the sensors add host syncs: {env_syncs} against {bare_syncs}')
+    worst, still, worst_still = imu_against_rigid_body(env, state, actions[steps:], gen, 10)
+    log(phase, f'10 more steps: imu_acc less its bias and noise against the trunk\'s specific '
+               f'force R_site^T (a + alpha x r + omega x (omega x r) + g), every env: max diff '
+               f'{worst:.3e} of 1 + |force| (bar {IMU_FORCE_BAR}); standing still {still} '
+               f'env-steps, there imu_acc against 9.81 along the site\'s z: max |diff| '
+               f'{worst_still:.4f} m/s^2 (bar {IMU_STILL_BAR})')
+    if not (worst < IMU_FORCE_BAR and worst_still < IMU_STILL_BAR):
+        raise AssertionError(f'imu_acc off the specific force by {worst}, standing still by '
+                             f'{worst_still} ({still} env-steps)')
+    # both kernels on the last step's inputs
+    fwd = engine.forward(dm, prev.qpos, prev.qvel, actions[steps - 1], warmstart=prev.qacc,
+                         con_mu=runtime_con_mu(dm, prev.geom_friction))
+    x = torch.empty_like(fwd.qfrc_smooth)
+    args = (fwd.M.data_ptr(), fwd.qfrc_smooth.data_ptr(), x.data_ptr(), B, dm.m.nv,
+            torch.cuda.current_stream().cuda_stream)
+    spd_ms = median_ms(lambda: spd._library(dm.m.nv).gqt_spd_solve_f32(*args))
+    log(phase, f'SPD kernel on the last step\'s M (B={B}, n={dm.m.nv}): {spd_ms:.4f} ms; on {smi()}')
+    newton = newton_timing((fwd.M, fwd.qacc_smooth, fwd.efc, prev.qacc), phase)
+    return {'env': env, 'gen': gen, 'state': state, 'actions': actions, 'kept': kept,
+            'launches': launches, 'spd_ms': spd_ms, 'newton': newton}
+
+
+def sensor_obs_err(card, cpu):
+    """{name: max |card - cpu| / (1 + max|cpu|)} over a list of steps' obs."""
+    out = {}
+    for name in card[0]:
+        c = torch.stack([o[name] for o in card]).double().cpu()
+        f = torch.stack([o[name] for o in cpu])
+        out[name] = ((c - f).abs().max() / (1 + f.abs().max())).item()
+    return out
+
+
+def sensors_card_against_cpu(run, phase=43, cap=GO2_AGREEMENT_ITERATIONS):
+    """Phase 43: the N_CPU_ENVS envs kept at step SENSOR_CPU_START, the IMU's
+    noise set to 0, moved along the floor to the origin, stepped CPU_STEPS
+    times through env.step on the card (f32) and on the CPU (f64) at a
+    Newton cap of `cap`: qpos within 1e-3 at the end, height_map_z, imu_gyro
+    and imu_acc within SENSOR_BARS over every step. The cap-10 readings
+    beside them."""
+    torch.set_num_threads(1)
+    env, actions = run['env'], run['actions']
+    dm64 = load_model('aliengo', 'flat', device='cpu', dtype=torch.float64)
+    envs = {(dev, it): cfg3_env(dm, solver_iterations=it, sensors_kwargs=(IMU_QUIET, HEIGHTMAP_KW))
+            for dev, dm in (('card', env.model), ('cpu', dm64)) for it in (cap, 10)}
+    start = run['kept'].map(torch.clone)
+    start.qpos[:, :2] = 0.0
+    states = {(dev, it): start.to('cpu', torch.float64) if dev == 'cpu' else start
+              for dev, it in envs}
+    obs = {k: [] for k in envs}
+    t0 = SENSOR_CPU_START
+    for t in range(t0, t0 + CPU_STEPS):
+        a = actions[t, :N_CPU_ENVS]
+        for (dev, it), s in states.items():
+            s, o = envs[dev, it].step(s, a if dev == 'card' else a.double().cpu())[:2]
+            states[dev, it] = s
+            obs[dev, it].append(o)
+    out = {}
+    for it in (cap, 10):
+        q = (states['card', it].qpos.double().cpu() - states['cpu', it].qpos).abs().max().item()
+        out[it] = q, sensor_obs_err(obs['card', it], obs['cpu', it])
+    fmt = lambda e: ', '.join(f'{k} {v:.3e}' for k, v in e.items() if k != 'qpos')
+    log(phase, f'aliengo/flat env with sensors, {N_CPU_ENVS} envs moved to the origin, steps '
+               f'{t0}..{t0 + CPU_STEPS}, card f32 vs CPU f64: Newton cap {cap}: max |qpos diff| '
+               f'{out[cap][0]:.3e}; max diff over the steps of 1 + max|f64|: {fmt(out[cap][1])}; '
+               f'at the cap of 10: qpos {out[10][0]:.3e}, {fmt(out[10][1])}')
+    if not out[cap][0] < 1e-3:
+        raise AssertionError(f'cfg3 env: card and CPU trajectories differ by {out[cap][0]}')
+    for name, bar in SENSOR_BARS.items():
+        if not out[cap][1][name] < bar:
+            raise AssertionError(f'cfg3 env: {name} of the card off the CPU f64 by '
+                                 f'{out[cap][1][name]} (bar {bar})')
+
+
+def terrain_sensors(phase=44, B=BATCH, steps=20):
+    """Phase 44: heightmaps on terrain. aliengo/perlin's env with the IMU and
+    the heightmap: random reset of B envs, `steps` steps, env-steps/s, peak
+    memory, 2 SPD + 1 Newton launches per step; every env's height_map_z
+    against the heightfield's own height at the grid points' x and y (the
+    hfield geom's pose applied; vertical rays are exact, so the bar is f32
+    rounding of the origin's z). Then hyqreal2/random_boxes' env with the
+    heightmap alone: `steps` steps at B, each casting B x 100 rays against
+    the plane and 100 boxes. Returns {'perlin_state': (the perlin env's
+    model, its last state), scene: launches}."""
+    out = {}
+    for robot, scene, sensors, kw in (('aliengo', 'perlin', (IMU, HeightMap), (IMU_KW, HEIGHTMAP_KW)),
+                                      ('hyqreal2', 'random_boxes', (HeightMap,), (HEIGHTMAP_KW,))):
+        dm = load_model(robot, scene, device=DEVICE)
+        names = ('qpos', 'qvel') + tuple(n for n in SENSOR_OBS[2:]
+                                         if n.startswith('height') or robot == 'aliengo')
+        env = cfg3_env(dm, state_obs_names=names, sensors=sensors, sensors_kwargs=kw)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, obs = env.reset(gen, B)
+        sync()
+        reset_s = time.perf_counter() - t0
+        actions = torch.rand(steps, B, dm.m.nu, generator=gen, device=DEVICE) * 4.0 - 2.0
+        finite = all_finite(state, obs)
+        sync()
+        spd.launches = nf.launches = 0
+        t0 = time.perf_counter()
+        for t in range(steps):
+            prev = state
+            state, obs = env.step(state, actions[t], gen)[:2]
+            finite &= all_finite(state, obs)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+        hm = obs['height_map_z']
+        log(phase, f'{robot}/{scene} env with {"IMU and " if robot == "aliengo" else ""}HeightMap '
+                   f'B={B}: reset {reset_s:.3f} s ({env.lift_rounds} lift rounds); {steps} env.steps '
+                   f'in {wall:.3f} s = {steps / wall:.3f} steps/s = {B * steps / wall:.1f} '
+                   f'env-steps/s; launches spd_solve {spd.launches}, newton_fused {nf.launches}; '
+                   f'height_map_z in [{hm.min().item():.4f}, {hm.max().item():.4f}]; peak device '
+                   f'memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {smi()}')
+        if not bool(finite):
+            raise AssertionError(f'a state or observation of the {robot}/{scene} env is not finite')
+        if (spd.launches, nf.launches) != (2 * steps, steps):
+            raise AssertionError(f'{robot}/{scene} env: launches {spd.launches}, {nf.launches}')
+        check_obs(env, obs, f'{robot}/{scene} with sensors')
+        if scene == 'perlin':
+            m = dm.m
+            hmap = env.sensors[1]
+            pts = hmap.grid_points(prev.qpos)                          # the rays' origins
+            h = int(np.flatnonzero(m.geom_type == GEOM_HFIELD)[0])
+            if not np.array_equal(m.geom_quat[h], [1.0, 0.0, 0.0, 0.0]):
+                raise AssertionError('the heightfield geom is rotated: the check takes it level')
+            g = torch.as_tensor(m.geom_pos[h], dtype=dm.dtype, device=DEVICE)
+            lx, ly = pts[..., 0] - g[0], pts[..., 1] - g[1]
+            inside = (lx.abs() <= dm.hfield_size[0]) & (ly.abs() <= dm.hfield_size[1])
+            ground = torch.where(inside, collision.hfield_height(dm, lx, ly) + g[2], 0.0)
+            ground = torch.maximum(ground, torch.zeros_like(ground))   # the plane at z = 0
+            err = (hm.reshape(ground.shape) - ground).abs().max().item()
+            bar = 4 * torch.finfo(torch.float32).eps * (1 + pts[..., 2].abs().max().item())
+            log(phase, f'aliengo/perlin height_map_z against the heightfield at the grid points '
+                       f'({B} envs x {hm.shape[1]} cells, {inside.float().mean().item():.4f} on the '
+                       f'field): max |diff| {err:.3e} m (bar {bar:.3e}, f32 rounding of the '
+                       f'origin z)')
+            if not err < bar:
+                raise AssertionError(f'aliengo/perlin heightmap off the heightfield by {err}')
+            out['perlin_state'] = (dm, state)
+        out[scene] = launches
+    return out
+
+
+def render_shares(dm, seg):
+    """(share of pixels on the world's geoms, on the robot's, none)."""
+    world = torch.as_tensor(world_geoms(dm.m), device=seg.device)
+    on_world = torch.isin(seg, world)
+    return (on_world.float().mean().item(), ((seg >= 0) & ~on_world).float().mean().item(),
+            (seg < 0).float().mean().item())
+
+
+def camera_renders(scenes, phase=45, n_cpu=4):
+    """Phase 45: Camera(64 x 48, robotcam).render of every env of phase 42's
+    last state (flat) and phase 44's (perlin): ms per render (CUDA events),
+    peak memory, depth finite and >= 0, seg ids in [-1, ngeom), the shares of
+    pixels on the terrain and on the robot; then n_cpu envs (on flat moved to
+    the origin) rendered in f64 on the CPU: depth and point cloud within
+    DEPTH_REL_BAR of the depth on the near pixels whose seg agrees, the
+    share whose seg differs under SEG_SHARE_BAR. Returns {scene: ms per
+    render}."""
+    torch.set_num_threads(1)
+    out = {}
+    for scene, (dm, state) in scenes.items():
+        m = dm.m
+        cam = Camera(dm, **CAMERA_KW)
+        kin = kinematics.fk(dm, state.qpos)
+        B = state.qpos.shape[0]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        depth, depth_p, seg, pc = cam.render(kin)
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = median_ms(lambda: cam.render(kin), launches=1, repeats=3)
+        world, robot, sky = render_shares(dm, seg)
+        log(phase, f'aliengo/{scene} Camera {cam.width} x {cam.height} render of {B} envs '
+                   f'({B * cam.width * cam.height} rays): {ms:.2f} ms per render, peak device '
+                   f'memory above its inputs {peak:.3f} GiB; pixels on the terrain {world:.4f}, on '
+                   f'the robot {robot:.4f}, none {sky:.4f}; on {smi()}')
+        if not (bool(torch.isfinite(depth).all()) and bool((depth >= 0).all())
+                and bool(torch.isfinite(pc).all())):
+            raise AssertionError(f'aliengo/{scene} depth not finite or negative')
+        if not (int(seg.min()) >= -1 and int(seg.max()) < m.ngeom):
+            raise AssertionError(f'aliengo/{scene} seg ids out of [-1, {m.ngeom})')
+        qpos = state.qpos[:n_cpu].clone()
+        if scene == 'flat':
+            qpos[:, :2] = 0.0            # the flat floor is the same everywhere
+        dm64 = load_model('aliengo', scene, device='cpu', dtype=torch.float64)
+        got = Camera(dm, **CAMERA_KW).shoot(qpos)
+        want = Camera(dm64, **CAMERA_KW).shoot(qpos.double().cpu())
+        agree = got[2].cpu() == want[2]
+        near = agree & (want[0] < NEAR_DEPTH)
+        far = agree & ~near
+        depth = want[0].clamp_min(1e-9)
+        d_rel = (got[0].double().cpu() - want[0]).abs() / depth
+        pc_rel = (got[3].double().cpu() - want[3]).norm(dim=-1).reshape(depth.shape) / depth
+        worst = lambda x, mask: x[mask].max().item() if bool(mask.any()) else 0.0
+        differ = 1.0 - agree.float().mean().item()
+        log(phase, f'aliengo/{scene}, {n_cpu} envs: card f32 vs CPU f64 on the {int(near.sum())} '
+                   f'pixels whose seg agrees nearer than {NEAR_DEPTH:g} m: depth '
+                   f'{worst(d_rel, near):.3e}, point cloud {worst(pc_rel, near):.3e} of the depth '
+                   f'(bar {DEPTH_REL_BAR}); the {int(far.sum())} farther (grazing the plane, up to '
+                   f'{worst(want[0], far):.1f} m): depth {worst(d_rel, far):.3e} of the depth; '
+                   f'pixels whose seg differs {int((~agree).sum())} of {agree.numel()} = '
+                   f'{differ:.5f} (bar {SEG_SHARE_BAR})')
+        if not (worst(d_rel, near) < DEPTH_REL_BAR and worst(pc_rel, near) < DEPTH_REL_BAR
+                and differ < SEG_SHARE_BAR):
+            raise AssertionError(f'aliengo/{scene} camera: the card and the CPU disagree')
+        out[scene] = ms
+    return out
+
+
+def camera_env(phase=46, B=BATCH, steps=50):
+    """Phase 46: the aliengo/flat env with a Camera(64 x 48, robotcam,
+    auto_render=True, fps=30): `steps` env.steps; the renders per env
+    (last_time moves) against the reference's rule on the host (render when
+    1/fps has passed since the last render, f32 clocks), 2 SPD + 1 Newton
+    launches per step; then rollout_with_sensors from the same reset state,
+    rendering every chunk of steps the rule's cadence gives, over the
+    states the auto-render saw: the same depth."""
+    dm = load_model('aliengo', 'flat', device=DEVICE)
+    env = cfg3_env(dm, state_obs_names=('qpos', 'qvel', 'depth_image'), sensors=(Camera,),
+                   sensors_kwargs=({**CAMERA_KW, 'fps': 30.0, 'auto_render': True},))
+    cam = env.sensors[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state0, obs = env.reset(gen, B)
+    actions = torch.rand(steps, B, dm.m.nu, generator=gen, device=DEVICE) * 4.0 - 2.0
+    renders = torch.zeros(B, dtype=torch.int64, device=DEVICE)
+    rendered = {}
+    state = state0
+    sync()
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    for t in range(1, steps + 1):
+        last = state.sensors[0].last_time
+        state, obs = env.step(state, actions[t - 1])[:2]
+        moved = state.sensors[0].last_time != last
+        renders += moved
+        rendered[t] = (moved.all(), moved.any(), state.sensors[0].depth)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    # the rule on the host, in f32 as on the card: the reset reads once
+    dt, interval = np.float32(dm.timestep), np.float32(cam.interval - 1e-9)
+    clock, last, expect = dt, dt, []
+    for t in range(1, steps + 1):
+        clock = np.float32(clock + dt)
+        if np.float32(clock - last) >= interval:
+            expect.append(t)
+            last = clock
+    got = [t for t, (all_, any_, _) in rendered.items() if bool(any_)]
+    log(phase, f'aliengo/flat env with an auto-rendering camera B={B}: {steps} env.steps in '
+               f'{wall:.3f} s = {steps / wall:.3f} steps/s = {B * steps / wall:.1f} env-steps/s; '
+               f'renders at steps {got} in every env {bool((renders == len(expect)).all())}, the '
+               f'rule\'s {expect}; launches spd_solve {spd.launches}, newton_fused {nf.launches}; '
+               f'on {smi()}')
+    if got != expect or not all(bool(rendered[t][0]) for t in expect) \
+            or not bool((renders == len(expect)).all()):
+        raise AssertionError(f'camera renders at {got}, the rule at {expect}')
+    if (spd.launches, nf.launches) != (2 * steps, steps):
+        raise AssertionError(f'camera env: launches {spd.launches}, {nf.launches}')
+    chunk = expect[0]
+    if any(t % chunk for t in expect):
+        raise AssertionError(f'the rule\'s renders {expect} are not every {chunk} steps')
+    n = chunk * len(expect)
+    # the carried state is (env state, the qpos before its last step): the
+    # render after each chunk sees what the auto-render saw in its last step
+    _, seq = rollout_with_sensors(lambda c, a: ((env.step(c[0], a)[0], c[0].qpos),),
+                                  (state0, state0.qpos), actions[:n],
+                                  lambda c: cam.shoot(c[1])[0], chunk)
+    err = max((seq[i] - rendered[t][2]).abs().max().item() for i, t in enumerate(expect))
+    log(phase, f'rollout_with_sensors rendering every {chunk} steps over the same states: '
+               f'max |depth diff| against the auto-render {err:.3e} m')
+    if not err < 1e-4:
+        raise AssertionError(f'rollout_with_sensors depth off the auto-render by {err}')
+    return launches
+
+
+def sensor_phases(spd_fields, newton_fields):
+    """Phases 42-46: BASELINE cfg3 (aliengo/flat with IMU and heightmap),
+    card against CPU, heightmaps on terrain, the depth camera and the
+    camera through the env."""
+    run = sensors_main_path()
+    sensors_card_against_cpu(run)
+    spd_fields['aliengo_sensors_launches'] = run['launches']['spd_solve']
+    spd_fields['aliengo_sensors_last_step_ms'] = run['spd_ms']
+    newton_fields['aliengo_sensors_launches'] = run['launches']['newton_fused']
+    newton_fields.update({'aliengo_sensors_' + k: v for k, v in run['newton'].items()})
+    flat = (run['env'].model, run['state'])
+    del run
+    terrain = terrain_sensors()
+    for scene, prefix in (('perlin', 'aliengo_perlin_sensors_'),
+                          ('random_boxes', 'random_boxes_heightmap_')):
+        spd_fields[prefix + 'launches'] = terrain[scene]['spd_solve']
+        newton_fields[prefix + 'launches'] = terrain[scene]['newton_fused']
+    camera_renders({'flat': flat, 'perlin': terrain['perlin_state']})
+    del flat, terrain
+    launches = camera_env()
+    spd_fields['camera_env_launches'] = launches['spd_solve']
+    newton_fields['camera_env_launches'] = launches['newton_fused']
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--newton-agreement', action='store_true',
                         help='run phases 1 and 5 alone and print their failures')
     parser.add_argument('--terrain', action='store_true',
                         help='run phases 1-2 and 35-41 alone (the perlin scenes)')
+    parser.add_argument('--sensors', action='store_true',
+                        help='run phases 1-2 and 42-46 alone (the sensors)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -1299,8 +1873,9 @@ def main():
     spd_fields = {}
     newton_fields = {}
     rates = {}
-    if args.terrain:
-        terrain_phases(spd_fields, newton_fields, rates)
+    if args.terrain or args.sensors:
+        (terrain_phases(spd_fields, newton_fields, rates) if args.terrain
+         else sensor_phases(spd_fields, newton_fields))
         log('time', f'seconds per phase: {phase_seconds()}; '
                     f'{time.perf_counter() - T_START:.1f} s in all')
         return
@@ -1359,6 +1934,10 @@ def main():
     env_random_boxes()
 
     terrain_phases(spd_fields, newton_fields, rates)
+
+    # ---- 42-46. the sensors: BASELINE cfg3, card against CPU, heightmaps on
+    # terrain, the depth camera, the camera through the env
+    sensor_phases(spd_fields, newton_fields)
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')

@@ -35,6 +35,15 @@ def _put(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tenso
     return out
 
 
+def _merge(dst, idx: torch.Tensor, src):
+    """The dataclass `dst` (an EnvState or a sensor state) with rows idx of
+    every tensor replaced by `src`'s, the sensor states' too."""
+    return dataclasses.replace(dst, **{
+        f.name: (tuple(_merge(d, idx, s) for d, s in zip(dst.sensors, src.sensors))
+                 if f.name == 'sensors' else _put(getattr(dst, f.name), idx, getattr(src, f.name)))
+        for f in dataclasses.fields(dst)})
+
+
 def quarantine_step(env, state: EnvState, action, generator: torch.Generator):
     """`env.step` with NaN quarantine: (state', obs, reward, terminated,
     truncated, info), where diverged envs are re-initialised by `env.reset`
@@ -44,7 +53,8 @@ def quarantine_step(env, state: EnvState, action, generator: torch.Generator):
     The reference skips the reset with a `lax.cond` inside its program. Here
     the step syncs with the host once (whether any env diverged); only when
     one did, `env.reset` runs for those envs alone (its lift loop syncs once
-    per round) and they are written into the batch by index."""
+    per round) and they are written into the batch by index, their sensor
+    states with them."""
     state2, obs, reward, term, trunc, info = env.step(state, action, generator)
     bad = bad_state_mask(state2)
     info = dict(info)
@@ -52,8 +62,7 @@ def quarantine_step(env, state: EnvState, action, generator: torch.Generator):
     if bool(bad.any()):
         idx = bad.nonzero()[:, 0]
         fresh, fresh_obs = env.reset(generator, idx.numel())
-        state2 = EnvState(**{f.name: _put(getattr(state2, f.name), idx, getattr(fresh, f.name))
-                             for f in dataclasses.fields(EnvState)})
+        state2 = _merge(state2, idx, fresh)
         obs = {k: _put(v, idx, fresh_obs[k]) for k, v in obs.items()}
     return state2, obs, reward, term | bad, trunc, info
 

@@ -8,21 +8,26 @@ on the model's device and in its dtype (`models.model.load_model`, the card
 by default). Per step the physics launches the SPD kernel twice and the
 fused Newton kernel once on the card; the env adds no host synchronisation.
 
-Configuration (command type, ranges, observables, disturbances) is the
-reference's constructor arguments, held by the env object. Randomness comes
-from a `torch.Generator` on the model's device that the caller passes, so
-draws are not reproducible against the reference's JAX streams; explicit
-qpos and qvel with scalar ranges make a reset deterministic. Sensors are
-not ported yet: `sensors` must be None.
+Configuration (command type, ranges, observables, disturbances, sensors)
+is the reference's constructor arguments, held by the env object.
+Randomness comes from a `torch.Generator` on the model's device that the
+caller passes, so draws are not reproducible against the reference's JAX
+streams; explicit qpos and qvel with scalar ranges make a reset
+deterministic. Sensors (`sensors.IMU`, `HeightMap`, `Camera`) are built
+with (model, **kwargs) and read the state before each step with the step's
+Forward; their observables are routed by name. A noisy IMU needs the
+generator in every `step`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.state import EnvState
@@ -73,10 +78,6 @@ class QuadrupedEnv:
         solver_iterations: int | None = None,
         max_contacts: int | None = None,
     ):
-        if sensors:
-            raise NotImplementedError(
-                'sensors are not ported: ' + ', '.join(getattr(s, '__name__', repr(s))
-                                                       for s in sensors))
         self.robot_name = robot
         self.robot_cfg = get_robot_config(robot)
         self.scene_name = scene
@@ -104,6 +105,12 @@ class QuadrupedEnv:
         # rounds of the lift out of contact in the last random reset (host int)
         self.lift_rounds = 0
 
+        # sensors, built with (model, **kwargs) on the sensor protocol
+        # (sensors/base.py); their states ride in EnvState.sensors
+        sensors_kwargs = sensors_kwargs or [{}] * len(sensors or ())
+        self.sensors = [cls(model=self.model, **kw)
+                        for cls, kw in zip(sensors or (), sensors_kwargs)]
+
         # geoms whose friction is randomised: ground-named geoms and the feet
         # (reference _set_ground_friction, quadruped_env.py:1277-1298)
         mask = np.array([bool(n) and n.lower() in ('ground', 'floor', 'hfield', 'terrain')
@@ -130,7 +137,8 @@ class QuadrupedEnv:
                 for k in range(n_tab)]))                                   # (T,)
 
         for name in self.state_obs_names:   # validate the names early
-            obslib.obs_dim(m, name)
+            if self._sensor_of(name) is None:
+                obslib.obs_dim(m, name)
 
         self._hparams = dict(
             robot=robot, state_obs_names=tuple(state_obs_names), scene=scene,
@@ -142,13 +150,30 @@ class QuadrupedEnv:
 
     # ------------------------------------------------------------------ helpers
 
+    def _sensor_of(self, name: str):
+        """The first sensor that observes `name`, or None."""
+        return next((s for s in self.sensors if name in s.available_observations()), None)
+
     def observation_space_dims(self) -> dict:
-        return {name: obslib.obs_dim(self.model.m, name) for name in self.state_obs_names}
+        dims = {}
+        for name in self.state_obs_names:
+            sensor = self._sensor_of(name)
+            dims[name] = (obslib.obs_dim(self.model.m, name) if sensor is None
+                          else sensor.observation_dim(name))
+        return dims
 
     def observation_space_limits(self) -> dict:
         """name -> (low, high) bounds (reference configure_observation_space,
-        quadruped_utils.py:235-325)."""
-        return {name: obslib.obs_limits(self.model.m, name) for name in self.state_obs_names}
+        quadruped_utils.py:235-325); sensor observables are unbounded."""
+        lims = {}
+        for name in self.state_obs_names:
+            sensor = self._sensor_of(name)
+            if sensor is None:
+                lims[name] = obslib.obs_limits(self.model.m, name)
+            else:
+                d = sensor.observation_dim(name)
+                lims[name] = (np.full(d, -np.inf), np.full(d, np.inf))
+        return lims
 
     def action_space_bounds(self) -> tuple:
         """(low, high) torque bounds (reference quadruped_env.py:214-225)."""
@@ -309,7 +334,8 @@ class QuadrupedEnv:
         """(state, obs) of B envs (quadruped_env.py:309-406): a random pose
         lifted out of contact, or the given qpos (B, nq) and qvel (B, nv);
         commands, friction and disturbances drawn from `generator`; then one
-        zero-torque step refreshes the whole pipeline."""
+        zero-torque step refreshes the whole pipeline, and the sensors start
+        and read once at the state before it, with its Forward."""
         dm = self.model
         m = dm.m
         if qpos is None and qvel is None:
@@ -333,7 +359,9 @@ class QuadrupedEnv:
             ref_base_lin_vel_H=ref_lin_H, ref_base_ang_yaw_dot=yaw_dot,
             steps_until_resample_vel=vel_steps,
             external_wrench=wrench, steps_until_resample_wrench=dist_steps,
-            geom_friction=friction)
+            geom_friction=friction,
+            sensors=tuple(s.init(generator, B) for s in self.sensors))
+        state = self._step_sensors(state, qp, qv, fwd, generator)
         return state, self._obs(state, fwd)
 
     # ------------------------------------------------------------------ step
@@ -341,8 +369,10 @@ class QuadrupedEnv:
     def step(self, state: EnvState, action, generator: torch.Generator | None = None):
         """(state', obs, reward, terminated, truncated, info) of one step of
         every env (quadruped_env.py:251-306): warm-started from state.qacc,
-        with the state's friction and disturbance. `generator` draws the
-        commands and disturbances that a 'reset' type resamples."""
+        with the state's friction and disturbance; the sensors read the
+        state before the step with its Forward. `generator` draws the
+        commands and disturbances that a 'reset' type resamples and the
+        sensors' noise."""
         dm = self.model
         m = dm.m
         B = state.qpos.shape[0]
@@ -397,7 +427,8 @@ class QuadrupedEnv:
             ref_base_lin_vel_H=ref_lin_H, ref_base_ang_yaw_dot=yaw_dot,
             steps_until_resample_vel=vel_steps,
             external_wrench=wrench, steps_until_resample_wrench=dist_steps,
-            geom_friction=state.geom_friction)
+            geom_friction=state.geom_friction, sensors=state.sensors)
+        new_state = self._step_sensors(new_state, state.qpos, state.qvel, fwd, generator)
         info = {'time': time, 'step_num': new_state.step_num,
                 'invalid_contacts': invalid, 'culled_contacts': self._culled_contacts(fwd)}
         return new_state, self._obs(new_state, fwd), reward, terminated, truncated, info
@@ -428,7 +459,24 @@ class QuadrupedEnv:
         return ((qpos[:, 0] > x_max) | (qpos[:, 0] < x_min)
                 | (qpos[:, 1] > y_max) | (qpos[:, 1] < y_min))
 
+    def _step_sensors(self, state: EnvState, qpos_pre, qvel_pre, fwd, generator) -> EnvState:
+        """Every sensor's state advanced by `Sensor.step` with the PRE-step
+        (qpos, qvel) and the step's Forward: MuJoCo computes sensordata in
+        mj_step's forward pass, so after a step it reflects the state before
+        it (quadruped_env.py:273-274, imu.py:102)."""
+        if not self.sensors:
+            return state
+        with record_function('sensors'):
+            new = tuple(s.step(ss, qpos_pre, qvel_pre, fwd, generator)
+                        for s, ss in zip(self.sensors, state.sensors))
+        return dataclasses.replace(state, sensors=new)
+
     def _obs(self, state: EnvState, fwd) -> dict:
-        return obslib.compute_obs(self.model, self.state_obs_names, state.qpos, state.qvel,
-                                  state.ctrl, fwd, state.ref_base_lin_vel_H,
-                                  state.ref_base_ang_yaw_dot)
+        core = [n for n in self.state_obs_names if self._sensor_of(n) is None]
+        obs = obslib.compute_obs(self.model, core, state.qpos, state.qvel, state.ctrl, fwd,
+                                 state.ref_base_lin_vel_H, state.ref_base_ang_yaw_dot)
+        for name in self.state_obs_names:
+            sensor = self._sensor_of(name)
+            if sensor is not None:
+                obs[name] = sensor.get_observation(name, state.sensors[self.sensors.index(sensor)])
+        return {name: obs[name] for name in self.state_obs_names}

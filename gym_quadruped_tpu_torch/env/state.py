@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from gym_quadruped_tpu_torch.models.model import DeviceModel
+from gym_quadruped_tpu_torch.sensors import CameraState, HeightMapState, IMUState
 
 
 @dataclasses.dataclass
@@ -41,16 +42,33 @@ class EnvState:
     # domain randomisation (quadruped_env.py:1277-1298)
     geom_friction: torch.Tensor   # (B, ngeom, 3) per-env friction table
 
+    # per-sensor states (dataclasses of (B, ...) tensors), ordered as env.sensors
+    sensors: tuple = ()
+
     def map(self, fn) -> 'EnvState':
-        """The state with `fn` applied to every field."""
-        return EnvState(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
+        """The state with `fn` applied to every tensor, the sensors' too."""
+        return EnvState(**{f.name: fn(getattr(self, f.name)) for f in tensor_fields(self)},
+                        sensors=tuple(_map_sensor(fn, ss) for ss in self.sensors))
 
     def to(self, device, dtype: torch.dtype) -> 'EnvState':
         """On `device`, float fields in `dtype`."""
         return self.map(lambda x: x.to(device, dtype if x.is_floating_point() else x.dtype))
 
 
-INT_FIELDS = ('step_num', 'steps_until_resample_vel', 'steps_until_resample_wrench')
+# integer fields: the state's counters and CameraState's geom ids
+INT_FIELDS = ('step_num', 'steps_until_resample_vel', 'steps_until_resample_wrench', 'seg')
+# the sensor states a reference state may carry, by class name
+SENSOR_STATES = {cls.__name__: cls for cls in (HeightMapState, IMUState, CameraState)}
+
+
+def tensor_fields(state) -> tuple:
+    """The fields of an EnvState that hold one tensor (all but `sensors`)."""
+    return tuple(f for f in dataclasses.fields(state) if f.name != 'sensors')
+
+
+def _map_sensor(fn, ss):
+    return dataclasses.replace(ss, **{f.name: fn(getattr(ss, f.name))
+                                      for f in dataclasses.fields(ss)})
 
 
 def init_state(dm: DeviceModel, B: int) -> EnvState:
@@ -75,12 +93,18 @@ def init_state(dm: DeviceModel, B: int) -> EnvState:
 def state_from_numpy(arrays, device, dtype: torch.dtype) -> EnvState:
     """The port's state from numpy arrays with a leading env axis: a mapping
     or an object with the field names as attributes, such as the
-    reference's batched EnvState with numpy leaves (its key and sensor
-    states are not read)."""
-    get = arrays.__getitem__ if isinstance(arrays, Mapping) else lambda k: getattr(arrays, k)
-    out = {}
-    for f in dataclasses.fields(EnvState):
-        a = np.asarray(get(f.name))
-        out[f.name] = torch.tensor(
-            a, device=device, dtype=torch.int32 if f.name in INT_FIELDS else dtype)
-    return EnvState(**out)
+    reference's batched EnvState with numpy leaves. Its sensor states (the
+    reference's HeightMapState, IMUState and CameraState, in the env's
+    order) become the port's; its PRNG keys (the state's and the IMU's) are
+    not read."""
+    mapping = isinstance(arrays, Mapping)
+    get = arrays.__getitem__ if mapping else lambda k: getattr(arrays, k)
+    as_tensor = lambda a, name: torch.tensor(
+        np.asarray(a), device=device, dtype=torch.int32 if name in INT_FIELDS else dtype)
+    out = {f.name: as_tensor(get(f.name), f.name) for f in tensor_fields(EnvState)}
+    sensors = []
+    for ss in (arrays.get('sensors', ()) if mapping else getattr(arrays, 'sensors', ())):
+        cls = SENSOR_STATES[type(ss).__name__]
+        sensors.append(cls(**{f.name: as_tensor(getattr(ss, f.name), f.name)
+                              for f in dataclasses.fields(cls)}))
+    return EnvState(**out, sensors=tuple(sensors))

@@ -181,6 +181,12 @@ class Model:
     mesh_nbr: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0, 0, 0), np.int32))  # (nmesh, Vmax, D)
 
+    def name2id(self, kind: str, name: str) -> int:
+        """The index of the body, joint, geom, site or camera `name`."""
+        table = {'body': self.body_names, 'joint': self.jnt_names, 'geom': self.geom_names,
+                 'site': self.site_names, 'camera': self.cam_names}[kind]
+        return table.index(name)
+
     @classmethod
     def load(cls, path: str | Path) -> 'Model':
         with np.load(Path(path), allow_pickle=False) as z:

@@ -162,3 +162,31 @@ def actuator_force(dm: DeviceModel, ctrl: torch.Tensor) -> torch.Tensor:
     force = torch.where(flim, torch.minimum(torch.maximum(force, flo), fhi), force)
     dof_of_act = dm.const('actuator_dof', lambda: m.jnt_dofadr[m.actuator_trnid])
     return ctrl.new_zeros(ctrl.shape[0], m.nv).index_add_(1, dof_of_act, force)
+
+
+def body_velocities(dm: DeviceModel, kin: Kin, qvel: torch.Tensor,
+                    cdof: torch.Tensor) -> torch.Tensor:
+    """(B, nbody, 6) spatial velocity (omega; v) of each body about
+    spatial_origin(kin): the sum of its chain's dof contributions."""
+    chain = dm.const('body_chain', lambda: _body_dof_masks(dm.m)[0])
+    return torch.einsum('bv,nvk->nbk', chain, qvel[..., None] * cdof)
+
+
+def body_accelerations(dm: DeviceModel, kin: Kin, qvel: torch.Tensor, qacc: torch.Tensor,
+                       cdof: torch.Tensor, gravity_offset: bool = True) -> torch.Tensor:
+    """(B, nbody, 6) spatial acceleration (alpha; a) of each body about
+    spatial_origin(kin) (mj_rnePostConstraint's cacc). With gravity_offset
+    the chain starts from -g, the accelerometer's convention (+9.81 z at
+    rest). Each body adds its own dofs' qacc terms and v x vJ, where vJ
+    counts only the dofs whose axes move with the body (a free joint's
+    translation and rotation parts apart, as in `rne_bias`)."""
+    m = dm.m
+    chain = dm.const('body_chain', lambda: _body_dof_masks(m)[0])
+    own_moving = dm.const('body_own_moving', lambda: _body_dof_masks(m)[1])
+    anc = dm.const('body_ancestors', lambda: subtree_matrix(m).T)
+    vel = body_velocities(dm, kin, qvel, cdof)
+    vJ = torch.einsum('bv,nvk->nbk', own_moving, qvel[..., None] * cdof)
+    a0 = torch.cat([torch.zeros_like(dm.gravity),
+                    -dm.gravity if gravity_offset else torch.zeros_like(dm.gravity)])
+    return (a0 + torch.einsum('bv,nvk->nbk', chain, qacc[..., None] * cdof)
+            + torch.einsum('ba,nak->nbk', anc, _cross_motion(vel, vJ)))

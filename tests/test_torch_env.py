@@ -38,8 +38,9 @@ from gym_quadruped_tpu.env.state import EnvState as JEnvState
 from gym_quadruped_tpu.models.builder import load_model as jload
 from gym_quadruped_tpu_torch.env import ALL_OBS, EnvState, QuadrupedEnv, init_state
 from gym_quadruped_tpu_torch.env import observables as pobs
-from gym_quadruped_tpu_torch.env.state import state_from_numpy
+from gym_quadruped_tpu_torch.env.state import state_from_numpy, tensor_fields
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
+from gym_quadruped_tpu_torch.physics.kinematics import fk as pfk
 from gym_quadruped_tpu_torch.utils.maths import quat_to_euler_xyz
 from test_torch_step import _close
 
@@ -107,7 +108,8 @@ def _both(arrays):
 
 
 def _check_state(state, ref, tol, where):
-    for f in dataclasses.fields(EnvState):
+    assert state.sensors == () and tuple(ref.sensors) == ()
+    for f in tensor_fields(EnvState):
         got, want = getattr(state, f.name).numpy(), np.asarray(getattr(ref, f.name))
         assert got.shape == want.shape, f'{where} {f.name}: {got.shape} {want.shape}'
         if want.dtype.kind in 'bi':
@@ -304,7 +306,19 @@ def test_reset_cadence():
 
 
 def test_sensors_not_ported():
-    class HeightMap:
-        pass
-    with pytest.raises(NotImplementedError, match='HeightMap'):
-        QuadrupedEnv('spot', sensors=[HeightMap])
+    """What still raises with sensors: the camera's RGB `image` and `save`
+    (a host MuJoCo render in the reference), and an observable that neither
+    the env nor a sensor knows."""
+    from gym_quadruped_tpu_torch.models.model import load_model
+    from gym_quadruped_tpu_torch.sensors import Camera, HeightMap
+    dm = load_model('aliengo', 'flat', device='cpu', dtype=torch.float64)
+    cam = Camera(dm, 8, 6, cam_name='robotcam')
+    qpos = torch.as_tensor(dm.m.key_qpos[:1])
+    assert cam.depth_image(pfk(dm, qpos)).shape == (1, 6, 8)
+    with pytest.raises(NotImplementedError, match='host MuJoCo render'):
+        cam.image(qpos)
+    with pytest.raises(NotImplementedError, match='host MuJoCo render'):
+        cam.save('unused', qpos)
+    with pytest.raises(ValueError, match='height_map_x'):
+        QuadrupedEnv('aliengo', model=dm, sensors=[HeightMap],
+                     state_obs_names=('qpos', 'height_map_z', 'height_map_x'))

@@ -14,6 +14,7 @@ import torch
 from gym_quadruped_tpu.env.batch import bad_state_mask as jbad
 from gym_quadruped_tpu_torch.env import QuadrupedEnv
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
+from gym_quadruped_tpu_torch.env.state import tensor_fields
 from gym_quadruped_tpu_torch.models.model import load_model
 
 
@@ -64,7 +65,7 @@ def test_quarantine_resets_bad_envs(env, batch_state):
 
 def _close_envs(state, obs, ref, envs):
     """The given envs of (state, obs) equal to those of `ref` exactly."""
-    for f in dataclasses.fields(state):
+    for f in tensor_fields(state):
         assert torch.equal(getattr(state, f.name)[envs], getattr(ref[0], f.name)[envs]), f.name
     for k in obs:
         assert torch.equal(obs[k][envs], ref[1][k][envs]), k
