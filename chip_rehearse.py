@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""CPU f32 run of chip_smoke.py's sensor phases (42-46) at a small batch.
+"""CPU f32 run of chip_smoke.py's sensor phases (42-46) or MPC phases
+(47-50) at a small batch.
 
     python3 chip_rehearse.py [B]        # B=32 by default, ~6 min on 4 threads
+    python3 chip_rehearse.py [B] --mpc  # phases 47-50, MPPI at K=B
 
 It checks the phases' control flow, shapes and bars without a card, and
 prints their lines with the same checks: the launch counts come from
@@ -41,6 +43,7 @@ def stub_cuda():
         return (time.perf_counter() - t0) * 1e3
 
     cs.median_ms = host_ms
+    cs.range_ms = lambda run, name, n=1: (host_ms(run), None)
     cs.sync_count = lambda fn: (fn(), (0, None))[1]
     cs.newton_timing = lambda last, phase: {}
     spd_solve, newton = engine.spd_solve_batched, cs.nf.solve_batched
@@ -58,10 +61,18 @@ def stub_cuda():
 
 
 def main():
-    B = int(sys.argv[1]) if len(sys.argv) > 1 else 32
+    args = [a for a in sys.argv[1:] if a != '--mpc']
+    B = int(args[0]) if args else 32
     torch.set_num_threads(4)
     stub_cuda()
     t0 = time.perf_counter()
+    if '--mpc' in sys.argv:
+        warm_rate = cs.mpc_solves(B=B)
+        run = cs.mpc_closed_loop(warm_rate, B=B)
+        cs.mpc_card_against_cpu(run)
+        cs.mppi_solves(K=B)
+        print(f'phases 47-50 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
+        return
     run = cs.sensors_main_path(B=B)
     cs.sensors_card_against_cpu(run)
     terrain = cs.terrain_sensors(B=B)

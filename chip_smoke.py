@@ -5,6 +5,7 @@
     python3 chip_smoke.py --newton-agreement   # phases 1 and 5 alone
     python3 chip_smoke.py --terrain            # phases 1-2 and 35-41 alone
     python3 chip_smoke.py --sensors            # phases 1-2 and 42-46 alone
+    python3 chip_smoke.py --mpc                # phases 1-2 and 47-50 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -81,7 +82,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      step 80 (the feet touch after ~30 steps);
  25-29. the same on hyqreal2/random_boxes (6,173 slots, 400 world boxes;
      ns 158), BASELINE cfg4's scene: phase 25 on the soft states alone, 20
-     steps at B=4096, 4 envs stepped 20 times on the CPU from step 0;
+     steps at B=4096, then 4 envs of the last state stepped 20 times more on
+     the card and in f64 on the CPU (steps 20-40: the feet touch from step
+     ~18);
  30. the env layer's main path: `QuadrupedEnv('go2', scene='flat', ...)`
      with a forward command and per-env friction U(0.5, 1.5), a random
      reset of B=4096 envs (the rounds of its lift out of contact), then 200
@@ -154,6 +157,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      at B=4096: the renders against the reference's rule worked out on the
      host, 2 SPD + 1 Newton launches per step; rollout_with_sensors
      rendering every 17 steps over the same states gives the same depth.
+ 47. MPC solves at H=12: `CentroidalMPC.solve` on go2/flat at B=4096 by
+     bench.py's recipe (feet fixed under the hips, the keyframe with 0.01
+     noise, qvel 0.1 noise, t U(0, 1), 0.4 m/s forward): cold (30 ADMM
+     iterations) and warm (10) solves/s from synchronised host medians,
+     host and device ms, tensor operations and host syncs per solve (0),
+     peak memory and the bound; each env's Newton-Schulz residual, again
+     with TF32 globally on (the port pins full f32; the unpinned loop's
+     reading beside it); the first-knot forces of 16 envs against the
+     port's f64 CPU solve;
+ 48. the closed loop: go2/flat's `QuadrupedEnv` at B=4096 reset from the
+     keyframe (joints U(-0.05, 0.05) rad), forward commands U(0.2, 0.6)
+     m/s, 250 env.steps under the MPC (trot, period 0.5 s) with a replan
+     every 5: exactly 2 SPD and 1 Newton launch per env.step and none in a
+     tick, no host sync in a tick, at least 90% of the envs upright at the
+     end; mean vx against the command, env-steps/s beside the bare
+     env.step's, the tick's host and device ms, and the replan-rate rule of
+     tests/test_mpc_gate.py (warm solves/s against env-steps/s / 5);
+ 49. card against CPU: 4 envs of phase 48 at step 100 stepped 20 times
+     with 4 replans in f64 on the CPU, qpos within 1e-3; the torque gap per
+     replan;
+ 50. MPPI on go2/flat at the reference's defaults (K=1024, H=24, sigma 2,
+     a Newton cap of 4): two solves from the keyframe, the second from the
+     shifted plan: s per solve, rollouts/s, launches per solve (24 Newton,
+     48 SPD), peak memory; each updated plan's cost within 1.05 of its
+     nominal's, 1 <= ess <= K; 8 rollouts against f64 on the CPU at caps of
+     30 and 4.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -166,6 +195,7 @@ record on the line before the last (go2/perlin's fields prefixed
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -178,6 +208,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from gym_quadruped_tpu_torch.env import ALL_OBS, QuadrupedEnv
@@ -185,9 +216,19 @@ from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
 from gym_quadruped_tpu_torch.env.state import tensor_fields
 from gym_quadruped_tpu_torch.models.model import GEOM_HFIELD, load_model
+from gym_quadruped_tpu_torch.mpc import (
+    MPPI,
+    CentroidalMPC,
+    GaitConfig,
+    MPCConfig,
+    MPPIConfig,
+    velocity_tracking_cost,
+)
+from gym_quadruped_tpu_torch.mpc import qp
+from gym_quadruped_tpu_torch.mpc.centroidal import NX
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
-from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
+from gym_quadruped_tpu_torch.physics import collision, constraints, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import (
     constraint_layout,
     pyramidal_rows,
@@ -744,27 +785,51 @@ def main_path(dm, phase, steps, windows, n_cpu):
             'steps_per_s': steps / wall}
 
 
+def card_continued(dm, start, t0, n):
+    """A window past the main path's last step: the card steps its first n
+    envs on from the state `start` at step t0, CPU_STEPS times, with seeded
+    U(-2, 2) torques. Returns (torques, activations, final qpos)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + t0)
+    ctrls = torch.rand(CPU_STEPS, n, dm.m.nu, generator=gen, device='cuda') * 4.0 - 2.0
+    C_all = len(constraint_layout(dm.m).cone_slots)
+    q, v, w = start
+    acts = []
+    for t in range(CPU_STEPS):
+        q, v, f = engine.step_batched(dm, q, v, ctrls[t], warmstart=w)
+        w = f.qacc
+        acts.append(activation(f.efc, C_all))
+    return ctrls, acts, q
+
+
 def card_against_cpu(dm, run, phase):
     """Phases 7, 12, 17, 22, 27 and 37: the run's first envs stepped
     CPU_STEPS times in f64 on the CPU through the same functions, from the
     card's states at each start of the run's windows; every env's qpos after
-    the steps within 1e-3 of the card's f32 state. The line also counts the
-    envs whose set of active simple rows and cone slots differed from the
-    card's at some step (a row at its activation threshold to rounding),
-    which would explain a failure."""
+    the steps within 1e-3 of the card's f32 state. A window that ends past
+    the main path's last step (hyqreal2/random_boxes', whose feet land
+    after ~18 steps) continues those envs on the card (`card_continued`).
+    The line also counts the envs whose set of active simple rows and cone
+    slots differed from the card's at some step (a row at its activation
+    threshold to rounding), which would explain a failure."""
     torch.set_num_threads(1)   # tiny batched products: one thread is fastest
     m = dm.m
     dm64 = load_model(m.robot, m.scene, device='cpu', dtype=torch.float64)
     C_all = len(constraint_layout(dm64.m).cone_slots)
     ctrls, states, acts, n = run['ctrls'], run['states'], run['acts'], run['n_cpu']
     for t0 in run['windows']:
+        if t0 + CPU_STEPS > ctrls.shape[0]:
+            ctrl_w, acts_w, end = card_continued(dm, states[t0], t0, n)
+        else:
+            ctrl_w = ctrls[t0:t0 + CPU_STEPS, :n]
+            acts_w = [acts[t] for t in range(t0, t0 + CPU_STEPS)]
+            end = states[t0 + CPU_STEPS][0]
         q, v, w = (x.double().cpu() for x in states[t0])
         switched = torch.zeros(n, dtype=torch.bool)
-        for t in range(t0, t0 + CPU_STEPS):
-            q, v, f = engine.step_batched(dm64, q, v, ctrls[t, :n].double().cpu(), warmstart=w)
+        for ctrl, act in zip(ctrl_w, acts_w):
+            q, v, f = engine.step_batched(dm64, q, v, ctrl.double().cpu(), warmstart=w)
             w = f.qacc
-            switched |= (activation(f.efc, C_all) != acts[t].cpu()).any(1)
-        err = (states[t0 + CPU_STEPS][0].double().cpu() - q).abs().max().item()
+            switched |= (activation(f.efc, C_all) != act.cpu()).any(1)
+        err = (end.double().cpu() - q).abs().max().item()
         log(phase, f'{m.robot}/{m.scene}, {n} envs, steps {t0}..{t0 + CPU_STEPS}: card f32 '
                    f'vs CPU f64 max |qpos diff| {err:.3e}; envs where a row or slot switched '
                    f'on one side only {int(switched.sum())}')
@@ -1248,15 +1313,17 @@ def terrain_steps(phase=41, steps=20):
 # phase, the prefix of the kernels line's fields. spot, aliengo and b2 run
 # 100 steps, to keep the whole run near 450 s. aliengo's and b2's feet
 # start above the floor and touch it after ~25 and ~30 steps: their
-# comparison starts at step 80. go2/perlin (BASELINE cfg2) starts on the
-# terrain (`start_qpos`).
+# comparison starts at step 80. hyqreal2/random_boxes' feet touch from step
+# ~18: its comparison covers steps 20-40, the card stepping its 4 envs on
+# past the main path's 20. go2/perlin (BASELINE cfg2) starts on the terrain
+# (`start_qpos`).
 SCENES = (
     (5, 'spot', 'flat', 100, (0, 80), N_CPU_ENVS, spot_agreement, ''),
     (10, 'go2', 'flat', STEPS, (0, 100), N_CPU_ENVS, go2_agreement, 'go2_'),
     (15, 'aliengo', 'flat', 100, (80,), N_CPU_ENVS,
      lambda dm, phase: pyramidal_agreement(dm, phase, (0.0, PRESS), phase5=True), 'aliengo_'),
     (20, 'b2', 'flat', 100, (80,), N_CPU_ENVS, pyramidal_agreement, 'b2_'),
-    (25, 'hyqreal2', 'random_boxes', 20, (0,), 4, pyramidal_agreement, 'hyqreal2_'),
+    (25, 'hyqreal2', 'random_boxes', 20, (20,), 4, pyramidal_agreement, 'hyqreal2_'),
     (35, 'go2', 'perlin', STEPS, (0, 100), N_CPU_ENVS, terrain_agreement, 'go2_perlin_'),
 )
 
@@ -1372,18 +1439,7 @@ def check_obs(env, obs, where):
 def sensors_range_ms(env, state, action, gen, n_steps=3):
     """(host ms, device ms) per env.step of the profiler range `sensors`,
     over n_steps steps, or None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            state = env.step(state, action, gen)[0]
-        sync()
-    cuda = torch.autograd.DeviceType.CUDA
-    ev = [e for e in prof.key_averages() if e.key == 'sensors' and e.device_type != cuda]
-    if not ev:
-        return None, None
-    dev_ms = ev[0].device_time_total / 1e3 / n_steps
-    return ev[0].cpu_time_total / 1e3 / n_steps, (dev_ms if dev_ms > 0 else None)
+    return range_ms(lambda: env.step(state, action, gen), 'sensors', n_steps)
 
 
 def imu_against_rigid_body(env, state, actions, gen, n):
@@ -1831,6 +1887,542 @@ def sensor_phases(spd_fields, newton_fields):
     newton_fields['camera_env_launches'] = launches['newton_fused']
 
 
+# ---- phases 47-50: the centroidal MPC and MPPI on go2/flat ------------------------------
+
+# bench.py's MPC recipe: feet fixed under the hips, the keyframe with 0.01
+# noise, qvel 0.1 noise, t U(0, 1), a forward command of 0.4 m/s
+MPC_FEET0 = ((0.19, 0.14, 0.02), (0.19, -0.14, 0.02), (-0.19, 0.14, 0.02), (-0.19, -0.14, 0.02))
+# Newton-Schulz residual ||I - XK||_F per env. The reference's docstring
+# gives ~2e-3 in f32 (gym_quadruped_tpu/mpc/qp.py:161); on this phase's
+# states its own f32 iteration reads more, and the port's no more than it
+# (tests/test_torch_mpc.py::test_spd_inverse_f32_floor): the p99 is held
+# to NS_RESID_BAR, and every env to NS_RESID_MAX (the card's tail reads
+# 1.196e-02, PERF.md). TF32's 10-bit mantissa floors the same iteration
+# near 0.2-0.4 (the unpinned line shows it).
+NS_RESID_BAR = 1e-2
+NS_RESID_MAX = 3e-2
+# the card's first-knot forces against the port's f64 CPU solve, relative to
+# the f64 force scale: the reference's Newton-Schulz against LU gap is 4e-3 N
+# on 165 N (2.4e-5)
+MPC_F64_BAR = 1e-3
+MPC_STEPS = 250
+MPC_REPLAN = 5
+MPC_CPU_START = 100
+MPC_CPU_ENVS = 4
+UPRIGHT_SHARE = 0.9
+# MPPI's rollouts run the Newton solve at a cap of 4, where most solves stop
+# unconverged and the line search's bisection (a sign test per halving)
+# makes the iterate a step function of rounding. So at that cap the kernel
+# is held to the eager f32 solve, the same arithmetic in the same
+# precision, twice, with bars from the readings of an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, PR 9), each printed beside what a kernel that
+# stopped one iteration early or late reads:
+# (1) on each of the 24 Newton solves of the 1,024 rollouts, on the inputs
+# the kernel's rollouts gave it: iteration counts differ in at most
+# ITERATION_ENVS_BAR of the env-steps (read 2 of 24,576; at caps 3 and 5
+# 98.8% and 98.3%), and the median env's qacc gap is at most
+# MPPI_STEP_MEDIAN_BAR of 1 + max|qacc| (read 2.4e-05; the eager f32 solve
+# against the eager f64 one is printed beside it; at caps 3 and 5 1.0e-02
+# and 5.5e-04).
+# (2) 8 rollouts' costs, the engine once on the kernel and once on the
+# eager f32 solve: within MPPI_CAP4_COST_BAR relative (read 3.148e-02, the
+# eager f32 solve 2.566e-02 from f64 on the CPU; the eager solve at caps 3
+# and 5 moves them 2.570e-01 and 1.914e-01).
+# At a cap of 30 the solves converge and the 8 rollouts' costs, card f32
+# against CPU f64, are held to MPPI_COST_BAR (read 3.798e-07).
+MPPI_COST_BAR = 1e-5
+MPPI_STEP_MEDIAN_BAR = 1e-4
+MPPI_CAP4_COST_BAR = 6e-2
+
+
+def mpc_flop(B, H, admm_iterations):
+    """Operations of B solves: the condensing (H running-row products, Su^T
+    Q Su and its vector), Newton-Schulz (2 products of n x n per iteration)
+    and the ADMM's matrix-vector products, n = 12 H."""
+    n, nx = 12 * H, NX
+    condense = H * 2 * (nx ** 3 + nx * nx * n) + 2 * n * H * nx * n + 2 * n * H * nx
+    return B * (condense + qp._NS_ITERS * 4 * n ** 3 + admm_iterations * 2 * n * n)
+
+
+def range_ms(run, name, n=1):
+    """(host ms, device ms) per call of run(), which records the profiler
+    range `name` (device None where the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        sync()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages() if e.key == name and e.device_type != cuda]
+    if not ev:
+        return None, None
+    dev_ms = ev[0].device_time_total / 1e3 / n
+    return ev[0].cpu_time_total / 1e3 / n, (dev_ms if dev_ms > 0 else None)
+
+
+def named(fn, name):
+    def run():
+        with record_function(name):
+            fn()
+    return run
+
+
+def ns_residuals(mpc, inputs):
+    """Each env's ||I - X K||_F of the Newton-Schulz inverse of its ADMM
+    matrix K = Hq + rho I, the product in f64."""
+    Hq, _, schedule = mpc.condensed_qp(*inputs)
+    n = Hq.shape[1]
+    K = Hq + mpc.cfg.rho * torch.eye(n, dtype=Hq.dtype, device=Hq.device)
+    X = qp.spd_inverse(K, qp.swing_components(schedule))
+    eye = torch.eye(n, dtype=torch.float64, device=Hq.device)
+    return torch.linalg.matrix_norm(eye - X.double() @ K.double())
+
+
+def mpc_solves(phase=47, B=BATCH):
+    """Phase 47: CentroidalMPC.solve on go2/flat at H=12 and B envs by
+    bench.py's recipe: cold (30 ADMM iterations) and warm (10) solves/s
+    from synchronised host medians, host and device ms (profiler range),
+    tensor operations and host syncs per solve (0), peak memory, the bound;
+    each env's Newton-Schulz residual (p99 at most NS_RESID_BAR, every env
+    NS_RESID_MAX), again with TF32 globally on; the first-knot forces of MPC_CPU_ENVS x 4 envs against
+    the port's f64 CPU solve (MPC_F64_BAR). Returns the warm solves/s."""
+    dm = load_model('go2', 'flat', device=DEVICE)
+    m = dm.m
+    cfg = MPCConfig(gait=GaitConfig('trot'), iterations=30)
+    mpc = CentroidalMPC(dm, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device=DEVICE).repeat(B, 1)
+    qpos = qpos + 0.01 * torch.randn(B, m.nq, generator=gen, device=DEVICE)
+    qvel = 0.1 * torch.randn(B, m.nv, generator=gen, device=DEVICE)
+    t = torch.rand(B, generator=gen, device=DEVICE)
+    feet = torch.tensor(MPC_FEET0, device=DEVICE).expand(B, 4, 3)
+    ref = torch.tensor([0.4, 0.0, 0.0], device=DEVICE).expand(B, 3)
+    inputs = (qpos, qvel, feet, t, ref, torch.zeros(B, device=DEVICE))
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    forces, warm0 = mpc.solve(*inputs)
+    sync()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    rates = {}
+    for form, warm in (('cold', None), ('warm', warm0)):
+        fn = functools.partial(mpc.solve, *inputs, warmstart=warm)
+        with OpCount() as ops:
+            fn()
+        syncs = sync_count(fn)
+        host = host_ms(fn, repeats=5)
+        prof_host, dev = range_ms(named(fn, 'mpc_solve'), 'mpc_solve', 2)
+        iters = cfg.iterations if warm is None else cfg.warm_iterations
+        flop = mpc_flop(B, cfg.horizon, iters)
+        n_bytes = B * 4 * (m.nq + m.nv + 12 + 1 + 3 + 1 + 12 * cfg.horizon * (1 + 3)
+                           + (3 * 12 * cfg.horizon if warm is not None else 0))
+        bound_ms, bound_by = bound(n_bytes, flop)
+        rates[form] = B / host * 1e3
+        log(phase, f'go2/flat MPC H={cfg.horizon} B={B} {form} ({iters} ADMM iterations): '
+                   f'{rates[form]:.1f} solves/s ({host:.3f} ms per solve, synchronised host '
+                   f'median of 5); profiler range: host {prof_host or 0:.3f} ms, device '
+                   f'{"not measured" if dev is None else f"{dev:.3f} ms"}; {ops.count} tensor '
+                   f'operations per solve; host syncs {syncs[0]}; bound {bound_ms:.3f} ms '
+                   f'({bound_by}: {flop / 1e12:.4f} TFLOP, {n_bytes / 1e6:.2f} MB in and out; '
+                   f'Newton-Schulz moves {qp._NS_ITERS * 2 * 3 * (12 * cfg.horizon) ** 2 * 4 * B / 1e9:.1f} '
+                   f'GB between products) = {host / bound_ms:.1f}x; on {smi()}')
+        if syncs[0]:
+            raise AssertionError(f'the {form} MPC solve synchronises with the host: {syncs[1]}')
+    log(phase, f'peak device memory of a cold solve above its inputs {peak:.3f} GiB; on {smi()}')
+
+    resid = ns_residuals(mpc, inputs)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        resid_tf32 = ns_residuals(mpc, inputs)
+        with mock.patch.object(qp, 'full_f32', contextlib.nullcontext):
+            unpinned = ns_residuals(mpc, inputs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    q = lambda r: (f'median {r.median().item():.3e}, p99 {r.quantile(0.99).item():.3e}, '
+                   f'max {r.max().item():.3e}')
+    log(phase, f'Newton-Schulz ||I - XK||_F per env: {q(resid)}; with TF32 globally on '
+               f'{q(resid_tf32)} (the loop pinned to full f32; unpinned it reads '
+               f'{q(unpinned)}); bars: p99 {NS_RESID_BAR}, every env {NS_RESID_MAX}')
+    for r, where in ((resid, ''), (resid_tf32, ' with TF32 on')):
+        if not (r.quantile(0.99) <= NS_RESID_BAR and r.max() <= NS_RESID_MAX):
+            raise AssertionError(f'Newton-Schulz residual{where}: {q(r)}')
+
+    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
+    mpc64 = CentroidalMPC(dm64, cfg)
+    f64 = mpc64.solve(*(x[:N_CPU_ENVS].double().cpu() for x in inputs))[0][:, 0]
+    err = (forces[:N_CPU_ENVS, 0].double().cpu() - f64).abs().max().item()
+    scale = f64.abs().max().item()
+    log(phase, f'first-knot forces of {N_CPU_ENVS} envs, card f32 against CPU f64: max |diff| '
+               f'{err:.3e} N on a force scale of {scale:.1f} N = {err / scale:.3e} (bar '
+               f'{MPC_F64_BAR})')
+    if not err / scale <= MPC_F64_BAR:
+        raise AssertionError(f'MPC forces: card and f64 CPU differ by {err / scale:.3e} of the scale')
+    return rates['warm']
+
+
+def mpc_tick(mpc, state, ref, warm):
+    """examples/go2_mpc_locomotion.py's tick: the feet and their world
+    Jacobians, one solve (warm when `warm` is given), the torques."""
+    dm = mpc.model
+    m = dm.m
+    kin = kinematics.fk(dm, state.qpos)
+    feet = kin.geom_xpos[:, dm.const('feet_geom_id', lambda: m.feet_geom_id)]
+    jacp, _ = constraints._point_jacobians(dm, kin, kinematics.cdof(dm, kin), feet,
+                                           m.feet_body_id)
+    forces, warm = mpc.solve(state.qpos, state.qvel, feet, state.time, ref,
+                             torch.zeros_like(state.time), warmstart=warm)
+    return mpc.torques(state.qpos, state.qvel, feet, jacp, forces[:, 0], state.time, ref), warm
+
+
+def closed_loop_config():
+    """The example's controller: trot of period 0.5 s, 50 cold ADMM
+    iterations, 10 warm."""
+    return MPCConfig(gait=GaitConfig('trot', period=0.5), iterations=50)
+
+
+def mpc_closed_loop(warm_rate, phase=48, B=BATCH, steps=MPC_STEPS):
+    """Phase 48: go2/flat's env at B envs trotting under the MPC: an
+    explicit reset from the keyframe with the joints moved U(-0.05, 0.05)
+    rad, qvel 0, forward commands U(0.2, 0.6) m/s per env, `steps` env.steps
+    with a replan every MPC_REPLAN (cold, then warm). Checks: every state
+    finite, exactly 2 SPD and 1 Newton launch per env.step and none in a
+    tick (counts set to 0 just before the loop, read just after), no host
+    sync in a tick, and at least UPRIGHT_SHARE of the envs upright at the
+    end (base z in [0.2, 0.35] m, R22 > 0.9). Prints mean vx against the
+    command, closed-loop env-steps/s beside the bare env.step's in this
+    call, the tick's host and device ms, and the replan-rate rule of
+    tests/test_mpc_gate.py (phase 47's warm solves/s against the env's
+    env-steps/s / 5). Keeps MPC_CPU_ENVS envs from step MPC_CPU_START."""
+    env = QuadrupedEnv('go2', scene='flat', state_obs_names=('qpos', 'qvel'),
+                       model=load_model('go2', 'flat', device=DEVICE))
+    dm = env.model
+    m = dm.m
+    mpc = CentroidalMPC(dm, closed_loop_config())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device=DEVICE).repeat(B, 1)
+    qpos[:, 7:] += torch.rand(B, m.nq - 7, generator=gen, device=DEVICE) * 0.1 - 0.05
+    ref = torch.zeros(B, 3, device=DEVICE)
+    ref[:, 0] = torch.rand(B, generator=gen, device=DEVICE) * 0.4 + 0.2
+    state, _ = env.reset(gen, B, qpos=qpos, qvel=torch.zeros(B, m.nv, device=DEVICE))
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    vx = torch.zeros(B, device=DEVICE)
+    warm, kept, per_step = None, {'taus': []}, []
+    sync()
+    spd.launches = nf.launches = 0
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i % MPC_REPLAN == 0:
+            if i == MPC_CPU_START:
+                kept['state'] = state.map(lambda x: x[:MPC_CPU_ENVS].clone())
+                kept['warm'] = tuple(w[:MPC_CPU_ENVS].clone() for w in warm)
+            before = spd.launches, nf.launches
+            tau, warm = mpc_tick(mpc, state, ref, warm)
+            if (spd.launches, nf.launches) != before:
+                raise AssertionError('an MPC tick launched a physics kernel')
+            if MPC_CPU_START <= i < MPC_CPU_START + CPU_STEPS:
+                kept['taus'].append(tau[:MPC_CPU_ENVS].clone())
+        before = spd.launches, nf.launches
+        state = env.step(state, tau)[0]
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        finite &= torch.isfinite(state.qpos).all() & torch.isfinite(state.qvel).all()
+        if i >= steps // 2:
+            vx += state.qvel[:, 0]
+        if i + 1 == MPC_CPU_START + CPU_STEPS:
+            kept['end'] = state.qpos[:MPC_CPU_ENVS].clone()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    rate = steps / wall
+    vx = vx / (steps - steps // 2)
+    z = state.qpos[:, 2]
+    R22 = kinematics.quat_to_mat(state.qpos[:, 3:7])[:, 2, 2]
+    upright = ((z >= 0.2) & (z <= 0.35) & (R22 > 0.9)).float().mean().item()
+
+    tick = lambda: mpc_tick(mpc, state, ref, warm)
+    syncs = sync_count(tick)
+    tick_host = host_ms(tick)
+    prof_host, tick_dev = range_ms(named(tick, 'mpc_tick'), 'mpc_tick', 2)
+    sync()
+    t1 = time.perf_counter()
+    bare = state
+    for _ in range(20):
+        bare = env.step(bare, tau)[0]
+    sync()
+    bare_rate = 20 / (time.perf_counter() - t1)
+    log(phase, f'go2/flat env under the MPC, B={B} f32: {steps} env.steps and {steps // MPC_REPLAN} '
+               f'solves in {wall:.3f} s = {rate:.3f} steps/s = {B * rate:.1f} env-steps/s; the '
+               f'bare env.step with fixed torques in this call {bare_rate:.3f} steps/s = '
+               f'{B * bare_rate:.1f} env-steps/s (closed loop / bare {rate / bare_rate:.3f}); '
+               f'on {smi()}')
+    log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
+               f'{launches["newton_fused"]} (per env.step {sorted(set(per_step))}, none in a '
+               f'tick); a warm tick: host {tick_host:.3f} ms (synchronised median), profiler '
+               f'range host {prof_host or 0:.3f} ms, device '
+               f'{"not measured" if tick_dev is None else f"{tick_dev:.3f} ms"}, host syncs '
+               f'{syncs[0]}; on {smi()}')
+    log(phase, f'after {steps} steps: upright {upright:.4f} of the envs (z in [0.2, 0.35] m and '
+               f'R22 > 0.9), mean z {z.mean().item():.4f} m; mean vx over the last '
+               f'{steps - steps // 2} steps {vx.mean().item():.4f} m/s against a mean command of '
+               f'{ref[:, 0].mean().item():.4f} (mean |vx - command| '
+               f'{(vx - ref[:, 0]).abs().mean().item():.4f})')
+    log(phase, f'replan-rate rule (tests/test_mpc_gate.py): phase 47\'s warm {warm_rate:.1f} '
+               f'solves/s against the bare env-steps/s / {MPC_REPLAN} = '
+               f'{B * bare_rate / MPC_REPLAN:.1f} replans/s demanded: '
+               f'{"met" if warm_rate >= B * bare_rate / MPC_REPLAN else "not met"} (printed, not '
+               f'gated); on {smi()}')
+    if not bool(finite):
+        raise AssertionError('a state of the MPC closed loop is not finite')
+    if any(k != (2, 1) for k in per_step):
+        raise AssertionError(f'expected 2 spd_solve and 1 newton_fused launch per env.step, got '
+                             f'{sorted(set(per_step))}')
+    if syncs[0]:
+        raise AssertionError(f'the MPC tick synchronises with the host: {syncs[1]}')
+    if upright < UPRIGHT_SHARE:
+        raise AssertionError(f'only {upright:.4f} of the envs upright after the closed loop')
+    return {'env': env, 'mpc': mpc, 'ref': ref[:MPC_CPU_ENVS], 'kept': kept,
+            'launches': launches}
+
+
+def mpc_card_against_cpu(run, phase=49):
+    """Phase 49: MPC_CPU_ENVS envs of phase 48's state at step
+    MPC_CPU_START, its warm start and commands, stepped CPU_STEPS times with
+    a replan every MPC_REPLAN through the same functions in f64 on the CPU:
+    qpos within 1e-3 of the card's at the end; the torque gap per replan
+    printed."""
+    torch.set_num_threads(1)   # tiny batched products: one thread is fastest
+    kept = run['kept']
+    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
+    env64 = QuadrupedEnv('go2', scene='flat', state_obs_names=('qpos', 'qvel'), model=dm64)
+    mpc64 = CentroidalMPC(dm64, run['mpc'].cfg)
+    state = kept['state'].to('cpu', torch.float64)
+    warm = tuple(w.double().cpu() for w in kept['warm'])
+    ref = run['ref'].double().cpu()
+    taus = []
+    for i in range(CPU_STEPS):
+        if i % MPC_REPLAN == 0:
+            tau, warm = mpc_tick(mpc64, state, ref, warm)
+            taus.append(tau)
+        state = env64.step(state, tau)[0]
+    gaps = [(t64 - tc.double().cpu()).abs().max().item() for t64, tc in zip(taus, kept['taus'])]
+    err = (kept['end'].double().cpu() - state.qpos).abs().max().item()
+    log(phase, f'go2/flat under the MPC, {MPC_CPU_ENVS} envs, steps {MPC_CPU_START}..'
+               f'{MPC_CPU_START + CPU_STEPS} ({len(taus)} replans): card f32 vs CPU f64 max '
+               f'|qpos diff| {err:.3e}; torque gap per replan (N m) '
+               f'{", ".join(f"{g:.3e}" for g in gaps)}')
+    if not err < 1e-3:
+        raise AssertionError(f'the MPC closed loop: card and CPU trajectories differ by {err}')
+
+
+def eager_newton(M, a_s, efc, warmstart=None, iterations=10, ls_iterations=6,
+                 iterations_out=None):
+    """The eager f32 solve in place of the kernel's wrapper: the oracle."""
+    return solver.solve(M, a_s, efc, warmstart, iterations, ls_iterations, iterations_out)
+
+
+def mppi_kernel_steps(mppi, qpos, qvel, ctrls, phase):
+    """Phase 50's check (1): the K rollouts of `ctrls` run again on the
+    kernel, each of their H Newton solves kept; on each, the kernel against
+    the eager f32 solve at the rollouts' cap (iteration counts and qacc per
+    env), and, printed, the kernel at one iteration fewer and one more and
+    the eager f64 solve against the same eager solve. Returns the bars
+    failed."""
+    cap = mppi.cfg.solver_iterations
+    kernel = nf.solve_batched
+    steps = []
+
+    def record(M, a_s, efc, warmstart=None, iterations=10, **kw):
+        steps.append((M, a_s, efc, warmstart))
+        return kernel(M, a_s, efc, warmstart=warmstart, iterations=iterations, **kw)
+
+    with mock.patch.object(nf, 'solve_batched', record):
+        mppi._rollout_cost(qpos, qvel, ctrls)
+    # per solve compared with the eager f32 one at the cap: envs whose
+    # iteration count differs, per-env qacc gaps, mean iterations
+    forms = [(f'the kernel at a cap of {c}', c) for c in (cap - 1, cap, cap + 1)]
+    forms.append(('the eager f64 solve (at the f32 tolerance; what rounding alone does)', None))
+    stats = {name: [0, [], 0.0] for name, _ in forms}
+    tol = solver._TOL[torch.float32]
+    for M, a_s, efc, w in steps:
+        it_e = torch.zeros(a_s.shape[0], dtype=torch.int32, device=a_s.device)
+        ref = solver.solve(M, a_s, efc, w, cap, iterations_out=it_e)[0]
+        for name, c in forms:
+            it = torch.zeros_like(it_e)
+            if c is None:   # the SPD kernel takes f32 only: the f64 solve's SPD solves run plain
+                with mock.patch.object(solver, 'spd_solve_batched', spd.unrolled_chol_solve_torch):
+                    got = solver.solve(M.double(), a_s.double(), as_f64(efc),
+                                       None if w is None else w.double(), cap,
+                                       iterations_out=it, _tol=tol)[0]
+            else:
+                got = kernel(M, a_s, efc, warmstart=w, iterations=c, iterations_out=it)[0]
+            st = stats[name]
+            st[0] += int((it != it_e).sum())
+            st[1].append(((got.double() - ref.double()).abs().amax(-1)
+                          / (1 + ref.double().abs().amax(-1))))
+            st[2] += it.float().mean().item() / len(steps)
+    n = len(steps) * steps[0][1].shape[0]
+    read = {}
+    for name, c in forms:
+        n_it, gaps, mean_it = stats[name]
+        g = torch.cat(gaps)
+        read[c] = (n_it / n, g.median().item())
+        log(phase, f'the {len(steps)} Newton solves of the {ctrls.shape[0]} rollouts ({n} '
+                   f'env-steps), {name} against the eager f32 solve at {cap}: iteration counts '
+                   f'differ in {n_it} ({read[c][0]:.4f}), qacc per env (of 1 + max|qacc|) '
+                   f'median {read[c][1]:.3e}, p99 {g.quantile(0.99).item():.3e}, max '
+                   f'{g.max().item():.3e}, share above {NEWTON_BAR} '
+                   f'{(g > NEWTON_BAR).double().mean().item():.4f}; mean iterations '
+                   f'{mean_it:.3f}' + ('' if c in (cap, None) else
+                                       ' (what a kernel stopping one iteration off reads)'))
+    failures = []
+    if not read[cap][0] <= ITERATION_ENVS_BAR:
+        failures.append(f'MPPI cap {cap}: iteration counts differ in {read[cap][0]:.4f} of the '
+                        f'env-steps (bar {ITERATION_ENVS_BAR})')
+    if not read[cap][1] <= MPPI_STEP_MEDIAN_BAR:
+        failures.append(f'MPPI cap {cap}: the median env\'s qacc gap {read[cap][1]:.3e} (bar '
+                        f'{MPPI_STEP_MEDIAN_BAR})')
+    return failures
+
+
+def mppi_rollout_agreement(mppi, qpos, qvel, ctrls, phase):
+    """Phase 50's check (2): the rollouts of `ctrls` (8) on the card through
+    the kernel and through the eager f32 solve at the rollouts' cap (the
+    eager one at one iteration fewer and one more printed beside it), and
+    in f64 on the CPU at that cap (printed) and at a cap of 30, where the
+    solves converge (MPPI_COST_BAR). Returns the bars failed."""
+    torch.set_num_threads(1)   # tiny batched products: one thread is fastest
+    dm, cfg = mppi.model, mppi.cfg
+    cap = cfg.solver_iterations
+    at = lambda model, cost, c: MPPI(model, cost, dataclasses.replace(cfg, solver_iterations=c))
+    rel = lambda x, ref: ((x - ref).abs() / ref.abs()).max().item()
+    kernel = at(dm, mppi.cost_fn, cap)._rollout_cost(qpos, qvel, ctrls).double().cpu()
+    card30 = at(dm, mppi.cost_fn, GO2_AGREEMENT_ITERATIONS)._rollout_cost(
+        qpos, qvel, ctrls).double().cpu()
+    with mock.patch.object(nf, 'solve_batched', eager_newton):
+        eager = {c: at(dm, mppi.cost_fn, c)._rollout_cost(qpos, qvel, ctrls).double().cpu()
+                 for c in (cap - 1, cap, cap + 1)}
+    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
+    cost64 = velocity_tracking_cost(dm64, (0.4, 0.0, 0.0), 0.0, float(dm.m.key_qpos[0][2]))
+    args64 = (qpos.double().cpu(), qvel.double().cpu(), ctrls.double().cpu())
+    f64 = {c: at(dm64, cost64, c)._rollout_cost(*args64) for c in (cap, GO2_AGREEMENT_ITERATIONS)}
+    k_e = rel(kernel, eager[cap])
+    gap = (kernel - eager[cap]).abs().max().item()
+    log(phase, f'{len(ctrls)} rollouts at a Newton cap of {cap}, costs through the kernel '
+               f'{", ".join(f"{x:.4f}" for x in kernel.tolist())}; through the eager f32 solve '
+               f'max relative gap {k_e:.3e}, absolute {gap:.3e} (a weight exp(-cost / lambda) '
+               f'moves by a factor of at most exp({gap / cfg.temperature:.3e})), bar '
+               f'{MPPI_CAP4_COST_BAR}; the eager f32 solve at caps {cap - 1} and {cap + 1} '
+               f'against it at {cap}: {rel(eager[cap - 1], eager[cap]):.3e} and '
+               f'{rel(eager[cap + 1], eager[cap]):.3e} (what a kernel stopping one iteration '
+               f'off reads)')
+    c30 = rel(card30, f64[GO2_AGREEMENT_ITERATIONS])
+    log(phase, f'against f64 on the CPU: at a cap of {GO2_AGREEMENT_ITERATIONS} (converged) card '
+               f'f32 {c30:.3e} (bar {MPPI_COST_BAR}); at {cap} (printed) the kernel '
+               f'{rel(kernel, f64[cap]):.3e}, the eager f32 solve {rel(eager[cap], f64[cap]):.3e}; '
+               f'f64 at {cap} against f64 at {GO2_AGREEMENT_ITERATIONS} '
+               f'{rel(f64[cap], f64[GO2_AGREEMENT_ITERATIONS]):.3e}')
+    failures = []
+    if not k_e <= MPPI_CAP4_COST_BAR:
+        failures.append(f'MPPI rollout costs at a cap of {cap}: kernel and eager f32 differ by '
+                        f'{k_e:.3e}')
+    if not c30 <= MPPI_COST_BAR:
+        failures.append(f'MPPI rollout costs at a cap of {GO2_AGREEMENT_ITERATIONS}: card and f64 '
+                        f'CPU differ by {c30:.3e}')
+    return failures
+
+
+def mppi_solves(phase=50, K=None):
+    """Phase 50: MPPI on go2/flat at the reference's defaults (K=1024,
+    H=24, sigma 2, lambda 1, a Newton cap of 4) with velocity_tracking_cost
+    at a forward command of 0.4 m/s, from the keyframe: two solves, the
+    second from shift(u1). Prints seconds per solve, rollouts/s, launches
+    per solve (H Newton, 2 H SPD), peak memory. Checks: each updated plan's
+    cost within 1.05 of its nominal's (tests/test_mppi.py), 1 <= ess <= K;
+    the first solve's K rollouts again, the kernel against the eager f32
+    solve on each of their Newton solves (`mppi_kernel_steps`); 8 of them
+    through the kernel, the eager f32 solve and in f64 on the CPU
+    (`mppi_rollout_agreement`). Prints the four plans' costs at a cap of 30
+    beside the cap of 4's."""
+    dm = load_model('go2', 'flat', device=DEVICE)
+    m = dm.m
+    cfg = MPPIConfig() if K is None else MPPIConfig(n_samples=K)
+    height = float(m.key_qpos[0][2])
+    mppi = MPPI(dm, velocity_tracking_cost(dm, (0.4, 0.0, 0.0), 0.0, height), cfg)
+    qpos = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device=DEVICE)
+    qvel = torch.zeros(m.nv, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    u0 = torch.zeros(cfg.horizon, m.nu, device=DEVICE)
+    draws = gen.get_state()
+    plans, infos, secs, launches = [u0], [], [], []
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        nominal = plans[-1] if len(plans) == 1 else MPPI.shift(plans[-1])
+        spd.launches = nf.launches = 0
+        t0 = time.perf_counter()
+        u, info = mppi.solve(gen, qpos, qvel, nominal)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        launches.append((spd.launches, nf.launches))
+        plans += [nominal, u]
+        infos.append(info)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    costs = mppi._rollout_cost(qpos, qvel, torch.stack(plans[1:]))   # u0, u1, shift(u1), u2
+    c = costs.tolist()
+    log(phase, f'go2/flat MPPI K={cfg.n_samples} H={cfg.horizon} cap {cfg.solver_iterations}: '
+               f'{secs[0]:.3f} s and {secs[1]:.3f} s per solve = '
+               f'{cfg.n_samples / secs[1]:.1f} rollouts/s ({cfg.n_samples * cfg.horizon / secs[1]:.1f} '
+               f'rollout steps/s); launches per solve (spd_solve, newton_fused) {launches}; peak '
+               f'device memory {peak:.3f} GiB; on {smi()}')
+    log(phase, f'costs: nominal {c[0]:.4f} -> updated {c[1]:.4f} (ess {infos[0]["ess"].item():.2f}, '
+               f'best sample {infos[0]["best_cost"].item():.4f}); shifted {c[2]:.4f} -> updated '
+               f'{c[3]:.4f} (ess {infos[1]["ess"].item():.2f}, best sample '
+               f'{infos[1]["best_cost"].item():.4f})')
+    failures = []
+    for (before, after), info in zip(((c[0], c[1]), (c[2], c[3])), infos):
+        if not (np.isfinite(after) and after <= before * 1.05):
+            failures.append(f'MPPI: the updated plan costs {after} against {before}')
+        if not 1.0 <= info['ess'].item() <= cfg.n_samples:
+            failures.append(f'MPPI: ess {info["ess"].item()} outside [1, K]')
+    if launches[0] != (2 * cfg.horizon, cfg.horizon):
+        failures.append(f'MPPI: expected {2 * cfg.horizon} spd_solve and {cfg.horizon} '
+                        f'newton_fused launches per solve, got {launches[0]}')
+
+    # the first solve's K control sequences, drawn again from its generator state
+    gen.set_state(draws)
+    eps = cfg.sigma * torch.randn((cfg.n_samples, cfg.horizon, m.nu), generator=gen,
+                                  device=DEVICE)
+    ctrls = u0[None] + eps
+    failures += mppi_kernel_steps(mppi, qpos, qvel, ctrls, phase)
+    failures += mppi_rollout_agreement(mppi, qpos, qvel, ctrls[:8], phase)
+
+    # the four plans at a Newton cap where the solves converge, beside the cap's
+    capped = dataclasses.replace(cfg, solver_iterations=GO2_AGREEMENT_ITERATIONS)
+    c30 = MPPI(dm, mppi.cost_fn, capped)._rollout_cost(qpos, qvel, torch.stack(plans[1:])).tolist()
+    log(phase, f'the four plans (nominal, updated, shifted, updated) at a Newton cap of '
+               f'{cfg.solver_iterations}: {", ".join(f"{x:.4f}" for x in c)} (updated / nominal '
+               f'{c[1] / c[0]:.4f}, {c[3] / c[2]:.4f}); at a cap of {GO2_AGREEMENT_ITERATIONS}: '
+               f'{", ".join(f"{x:.4f}" for x in c30)} (updated / nominal {c30[1] / c30[0]:.4f}, '
+               f'{c30[3] / c30[2]:.4f}; printed: the rule is held at the rollouts\' cap)')
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return {'spd_solve': sum(x[0] for x in launches), 'newton_fused': sum(x[1] for x in launches)}
+
+
+def mpc_phases(spd_fields, newton_fields):
+    """Phases 47-50: MPC solves/s at H=12 and B=4096, the go2/flat closed
+    loop, its card against CPU window, MPPI."""
+    warm_rate = mpc_solves()
+    run = mpc_closed_loop(warm_rate)
+    mpc_card_against_cpu(run)
+    spd_fields['mpc_env_launches'] = run['launches']['spd_solve']
+    newton_fields['mpc_env_launches'] = run['launches']['newton_fused']
+    del run
+    launches = mppi_solves()
+    spd_fields['mppi_launches'] = launches['spd_solve']
+    newton_fields['mppi_launches'] = launches['newton_fused']
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--newton-agreement', action='store_true',
@@ -1839,6 +2431,8 @@ def main():
                         help='run phases 1-2 and 35-41 alone (the perlin scenes)')
     parser.add_argument('--sensors', action='store_true',
                         help='run phases 1-2 and 42-46 alone (the sensors)')
+    parser.add_argument('--mpc', action='store_true',
+                        help='run phases 1-2 and 47-50 alone (the MPC and MPPI)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -1873,9 +2467,13 @@ def main():
     spd_fields = {}
     newton_fields = {}
     rates = {}
-    if args.terrain or args.sensors:
-        (terrain_phases(spd_fields, newton_fields, rates) if args.terrain
-         else sensor_phases(spd_fields, newton_fields))
+    if args.terrain or args.sensors or args.mpc:
+        if args.terrain:
+            terrain_phases(spd_fields, newton_fields, rates)
+        elif args.sensors:
+            sensor_phases(spd_fields, newton_fields)
+        else:
+            mpc_phases(spd_fields, newton_fields)
         log('time', f'seconds per phase: {phase_seconds()}; '
                     f'{time.perf_counter() - T_START:.1f} s in all')
         return
@@ -1938,6 +2536,10 @@ def main():
     # ---- 42-46. the sensors: BASELINE cfg3, card against CPU, heightmaps on
     # terrain, the depth camera, the camera through the env
     sensor_phases(spd_fields, newton_fields)
+
+    # ---- 47-50. the centroidal MPC: solves/s at H=12, the go2/flat closed loop,
+    # card against CPU, MPPI
+    mpc_phases(spd_fields, newton_fields)
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')

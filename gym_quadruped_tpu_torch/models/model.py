@@ -187,6 +187,11 @@ class Model:
                  'site': self.site_names, 'camera': self.cam_names}[kind]
         return table.index(name)
 
+    @property
+    def base_body_id(self) -> int:
+        """The floating-base body (child of world holding the free joint)."""
+        return int(self.jnt_bodyid[np.where(self.jnt_type == FREE)[0][0]])
+
     @classmethod
     def load(cls, path: str | Path) -> 'Model':
         with np.load(Path(path), allow_pickle=False) as z:
