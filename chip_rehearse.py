@@ -45,7 +45,7 @@ def stub_cuda():
     cs.median_ms = host_ms
     cs.range_ms = lambda run, name, n=1: (host_ms(run), None)
     cs.sync_count = lambda fn: (fn(), (0, None))[1]
-    cs.newton_timing = lambda last, phase: {}
+    cs.newton_timing = lambda last, phase, rounding=False: {}
     spd_solve, newton = engine.spd_solve_batched, cs.nf.solve_batched
 
     def spd_counted(*args, **kwargs):

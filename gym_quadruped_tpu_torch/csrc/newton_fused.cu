@@ -39,14 +39,17 @@
 // by the latency of its small dependent steps: one env's work is too small
 // for many threads.
 //
-// Design: one warp runs one env's whole solve, WARPS envs to a block, and
+// Design: one warp runs one env's whole solve, one or two envs to a block, and
 // warps never wait for each other (no block barrier), so a converged env is a
 // warp that leaves its loop and a ragged last block's spare warps return at
-// once. Two envs to a block: a block keeps its shared memory until its
-// slowest env is done, so small blocks waste little of it. At staging the
-// warp compacts the active rows with a ballot per 32 rows and a prefix count
-// (up to MAX_NS = 160 simple rows, the 148-158 of a pyramidal model's 32
-// culled slots x 4 facets plus its friction-loss and limit rows): only the
+// once. Two envs to a block where two envs' shared memory fits in one block,
+// else one (envs_per_block, chosen at launch from nv, ns and C): a block keeps
+// its shared memory until its slowest env is done, so small blocks waste
+// little of it. At staging the warp compacts the active rows with a ballot
+// per 32 rows and a prefix count (up to MAX_NS = 1,088 simple rows: the
+// 148-158 of a pyramidal model's 32 culled slots x 4 facets, and the unculled
+// per-slot rows of the frictionless and mixed-condim models, up to 1,058 on
+// mini_cheetah/perlin, each with its friction-loss and limit rows): only the
 // na active simple rows and the nc active cone blocks are staged, in their
 // original order, and every loop walks only those. Dropping a row drops exact
 // zeros from each sum, and adding a zero does not change an f32 sum, so
@@ -83,12 +86,11 @@ static_assert(GQT_NV >= 1 && GQT_NV <= chol_warp::MAX_N, "GQT_NV must be in 1..3
 
 namespace {
 
-constexpr int WARPS = 2;          // envs per block
-constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_WARPS = 2;      // envs per block, at most (envs_per_block)
 constexpr int GRID = 15;          // step-length grid points
 constexpr float T_MAX = 256.0f;   // the grid's last point
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_NS = 160;       // simple rows: 5 words of the active-row ballot
+constexpr int MAX_NS = 1088;      // simple rows: 34 words of the active-row ballot
 constexpr int MAX_C = 32;         // cone blocks: 1 word
 
 // One env's shared memory, as float offsets (M, H, J, cJ and Tc have the
@@ -138,7 +140,7 @@ __host__ __device__ Layout layout(int nv, int ns, int C) {
   return s;
 }
 
-size_t smem_bytes(int nv, int ns, int C) { return sizeof(float) * WARPS * layout(nv, ns, C).total; }
+size_t env_bytes(int nv, int ns, int C) { return sizeof(float) * layout(nv, ns, C).total; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -448,7 +450,7 @@ __device__ __forceinline__ void compute_hessian(const Env& e, float reg, int lan
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS, 16 / WARPS)
+__global__ void __launch_bounds__(32 * MAX_WARPS, 16 / MAX_WARPS)
 newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
               const float* __restrict__ gA0, const float* __restrict__ gJ,
               const float* __restrict__ gAref, const float* __restrict__ gR,
@@ -463,7 +465,7 @@ newton_kernel(const float* __restrict__ gM, const float* __restrict__ gAs,
   extern __shared__ float smem[];
   constexpr int nv = GQT_NV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long env = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  const long long env = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
   if (env >= B) return;
   if (ns == 0 && C == 0) {
     if (lane < nv) {
@@ -689,6 +691,20 @@ cudaError_t configure(size_t smem) {
   return e;
 }
 
+// Envs per block at (nv, ns, C): MAX_WARPS where that many envs' shared
+// memory fits in the most a block of the current device may take, else 1
+// (cudaErrorInvalidValue where not even one env fits).
+cudaError_t envs_per_block(int nv, int ns, int C, int* warps) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t per_env = env_bytes(nv, ns, C);
+  if (per_env > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  *warps = MAX_WARPS * per_env <= static_cast<size_t>(optin) ? MAX_WARPS : 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Every array is row-major,
@@ -711,11 +727,14 @@ extern "C" int gqt_newton_fused_f32(
       ls_iterations < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(nv, ns, C);
-  const cudaError_t e = configure(smem);
+  int warps = 0;
+  cudaError_t e = envs_per_block(nv, ns, C, &warps);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (B + WARPS - 1) / WARPS;
-  newton_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = warps * env_bytes(nv, ns, C);
+  e = configure(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + warps - 1) / warps;
+  newton_kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       M, a_smooth, a0, J, aref, R, active, fl, cJ, caref, cR, cactive, mu, dm, grid, qacc,
       fs, fc, qfrc, iters, B, ns, C, iterations, ls_iterations, tol);
   return static_cast<int>(cudaGetLastError());
@@ -725,13 +744,18 @@ extern "C" int gqt_newton_fused_f32(
 // envs per block and shared-memory bytes per block. Returns the CUDA error
 // code.
 extern "C" int gqt_newton_fused_occupancy(int nv, int ns, int C, int* blocks_per_sm,
-                                          int* envs_per_block, int* smem_per_block) {
-  if (nv != GQT_NV) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(nv, ns, C);
-  *envs_per_block = WARPS;
+                                          int* envs_per_block_out, int* smem_per_block) {
+  if (nv != GQT_NV || ns < 0 || ns > MAX_NS || C < 0 || C > MAX_C) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int warps = 0;
+  cudaError_t e = envs_per_block(nv, ns, C, &warps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = warps * env_bytes(nv, ns, C);
+  *envs_per_block_out = warps;
   *smem_per_block = static_cast<int>(smem);
-  const cudaError_t e = configure(smem);
+  e = configure(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, newton_kernel, THREADS, smem));
+      blocks_per_sm, newton_kernel, 32 * warps, smem));
 }

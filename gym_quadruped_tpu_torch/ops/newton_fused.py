@@ -15,7 +15,7 @@ warm start (B, nv) (None starts from a_smooth), and return (qacc (B, nv),
 f_simple (B, ns), f_cone (B, C, 6), qfrc_constraint (B, nv)).
 
 On CPU tensors they run the plain version, `physics.solver.solve` (any float
-dtype). On CUDA tensors they launch the kernel (f32, nv <= 32, ns <= 160,
+dtype). On CUDA tensors they launch the kernel (f32, nv <= 32, ns <= 1,088,
 C <= 32, contiguous, one device) or raise; they never fall back, not even
 with no rows at all (ns = C = 0), where the kernel writes a_smooth as the
 plain version does. The kernel is built with nvcc, one library for each nv,
@@ -35,7 +35,7 @@ from gym_quadruped_tpu_torch.physics import solver
 from gym_quadruped_tpu_torch.physics.constraints import Efc
 
 MAX_NV = 32
-MAX_NS = 160
+MAX_NS = 1088
 MAX_C = 32
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'newton_fused.cu'
 
@@ -73,7 +73,8 @@ def _library(nv: int):
 def occupancy(nv: int, ns: int, C: int) -> tuple[int, int, int]:
     """(blocks per SM, envs per block, shared-memory bytes per block) of the
     kernel at (nv, ns, C), from the CUDA occupancy query on the current
-    device."""
+    device. A block holds two envs where their shared memory fits in one
+    block, else one (mini_cheetah/perlin's 1,058 rows)."""
     blocks, per_block, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = _library(nv).gqt_newton_fused_occupancy(nv, ns, C, ctypes.byref(blocks),
                                                   ctypes.byref(per_block), ctypes.byref(smem))

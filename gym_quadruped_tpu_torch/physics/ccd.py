@@ -1,10 +1,10 @@
 """Convex contact by support-function SAT, pattern refinement and MuJoCo's
-multiccd perturbation manifold, for the capsule-box and cylinder-box pairs,
-and the SAT, refinement and witness of the heightfield's box and cylinder
-pairs (one contact per prism, no manifold).
+multiccd perturbation manifold, for the capsule-box, cylinder-box and
+mesh pairs (convex hulls given by their vertices), and the SAT, refinement
+and witness of the heightfield's box, cylinder and mesh pairs (one contact
+per prism, no manifold).
 
-Counterpart of gym_quadruped_tpu/physics/ccd.py, limited to what those pairs
-need. MuJoCo collides convex pairs with its native CCD (GJK/EPA) plus
+Counterpart of gym_quadruped_tpu/physics/ccd.py. MuJoCo collides convex pairs with its native CCD (GJK/EPA) plus
 multiccd: one penetration direction and depth per pair, then up to 4 more
 manifold points from perturbed configurations. The perturbation rule the
 reference decoded from MuJoCo 3.10:
@@ -81,13 +81,14 @@ def axis_angle(axis, ang):
     ], -2)
 
 
-def perturb_rots(n):
+def perturb_rots(n, eps=EPS_PERTURB):
     """The 4 multiccd perturbations for contact normals n (..., 3): (Ra, Rb),
     each (..., 4, 3, 3), Ra[k] for geom A's orientation and Rb[k] for geom
-    B's, about their centers. Axes t1, t1, t2, t2 with angles +eps, -eps."""
+    B's, about their centers. Axes t1, t1, t2, t2 with angles +eps, -eps
+    (the mesh pairs take eps = 1.75e-3)."""
     t1, t2 = tangents(n)
     axes = torch.stack([t1, t1, t2, t2], -2)
-    e = n.new_full(n.shape[:-1], EPS_PERTURB)
+    e = n.new_full(n.shape[:-1], eps)
     ang = torch.stack([e, -e, e, -e], -1)
     return axis_angle(axes, -ang), axis_angle(axes, ang)
 
@@ -126,6 +127,72 @@ def support_cyl(d, p, R, radius, halflen):
     nr = _norm(radial, keepdim=True)
     rdir = torch.where(nr > 1e-12, radial / torch.clamp_min(nr, 1e-12), 0.0)
     return p + (torch.sign(da) * halflen)[..., None] * a + radius[..., None] * rdir
+
+
+def vecmat(x, y):
+    """x (..., K) @ y (..., K, M) -> (..., M), y's leading dims broadcasting
+    against x's. The axes of x along which y has size 1 ride as the rows of
+    one batched product, so y is never expanded: a hull's vertices (..., V,
+    3) meet a stack of directions without a copy per direction."""
+    lead = torch.broadcast_shapes(x.shape[:-1], y.shape[:-2])
+    n = len(lead)
+    ys = (1,) * (n - (y.dim() - 2)) + tuple(y.shape[:-2])
+    y = y.reshape(ys + tuple(y.shape[-2:]))
+    free = [i for i in range(n) if ys[i] == 1 and lead[i] > 1]
+    keep = [i for i in range(n) if i not in free]
+    xk = x.expand(lead + x.shape[-1:]).permute(*keep, *free, n)
+    kshape = [lead[i] for i in keep]
+    xk = xk.reshape(kshape + [-1, x.shape[-1]])
+    y = y[tuple(0 if i in free else slice(None) for i in range(n))]
+    out = (xk @ y).reshape(kshape + [lead[i] for i in free] + [y.shape[-1]])
+    order = keep + free
+    return out.permute(*[order.index(i) for i in range(n)], n)
+
+
+def hull_dots(d, verts):
+    """d (..., 3) . each vertex of verts (..., V, 3) -> (..., V)."""
+    return vecmat(d, verts.transpose(-1, -2))
+
+
+def support_verts(d, verts):
+    """Support point of a polytope given as its vertices (..., V, 3) along
+    d (..., 3): the extreme vertex or, on a tie (a face-aligned d), the
+    centroid of the vertices within 1e-12 of the extreme value."""
+    vals = hull_dots(d, verts)
+    w = (vals >= vals.amax(-1, keepdim=True) - 1e-12).to(d.dtype)
+    return vecmat(w, verts) / torch.clamp_min(w.sum(-1, keepdim=True), 1.0)
+
+
+SUPVAL_CHUNK = 2 ** 30   # products d . vertex formed at once by supval_rows
+
+
+def supval_rows(u, verts):
+    """max of u.x over one polytope's vertices verts (V, 3), for directions
+    u (..., 3) of any shape: one product of all the directions as rows, in
+    slices of at most SUPVAL_CHUNK products."""
+    rows = u.reshape(-1, 3)
+    step = max(1, SUPVAL_CHUNK // verts.shape[0])
+    if rows.shape[0] <= step:
+        return (rows @ verts.T).amax(-1).reshape(u.shape[:-1])
+    out = rows.new_empty(rows.shape[0])
+    for i in range(0, rows.shape[0], step):
+        out[i:i + step] = (rows[i:i + step] @ verts.T).amax(-1)
+    return out.reshape(u.shape[:-1])
+
+
+def support_rows(u, verts, mult):
+    """`support_verts` over one polytope's vertices verts (V, 3) that each
+    stand for mult (V,) rows of a padded table (a pad row repeating one):
+    the extreme vertex, or the mult-weighted centroid of the vertices within
+    1e-12 of the extreme value. u (..., 3) of any shape."""
+    vals = u.reshape(-1, 3) @ verts.T
+    w = (vals >= vals.amax(-1, keepdim=True) - 1e-12).to(u.dtype) * mult
+    return ((w @ verts) / torch.clamp_min(w.sum(-1, keepdim=True), 1.0)).reshape(u.shape)
+
+
+def supval_verts(d, verts):
+    """max of d.x over the polytope of vertices verts (..., V, 3)."""
+    return hull_dots(d, verts).amax(-1)
 
 
 def supval_box(d, p, R, size):
@@ -174,6 +241,48 @@ def clip_into_cyl(pt, p, R, radius, halflen):
     rn = _norm(rad, keepdim=True)
     rad = rad * (torch.minimum(rn, radius[..., None]) / torch.clamp_min(rn, 1e-12))
     return p + ax[..., None] * a + rad
+
+
+def clip_into_hull(pt, verts, iters=12, support=None):
+    """Project pt (..., 3) into the convex hull of verts (..., V, 3) by
+    Frank-Wolfe with exact line search on |pt - x|^2 from the vertices'
+    mean: each of `iters` steps moves toward the support vertex along the
+    residual (interior points stay put). `support(g)` gives the hull's
+    support points along directions g (..., 3) (`support_verts` over verts
+    without it)."""
+    if support is None:
+        support = lambda g: support_verts(g, verts)   # noqa: E731
+    x = verts.mean(-2).expand(pt.shape)
+    for _ in range(iters):
+        g = pt - x
+        dx = support(g) - x
+        gamma = torch.clamp(_dot(g, dx) / torch.clamp_min(_dot(dx, dx), 1e-30), 0.0, 1.0)
+        x = x + gamma[..., None] * dx
+    return x
+
+
+def top3_vertices(verts, vals, tol):
+    """The 3 vertices of largest vals (..., V) of verts (..., V, 3), the
+    first index first among equal values: the support feature triangle
+    (vertex, edge or face). A vertex not within tol of the largest value is
+    replaced by the first. Returns (..., 3, 3)."""
+    lead = torch.broadcast_shapes(vals.shape[:-1], verts.shape[:-2])
+    verts, vals = verts.expand(lead + verts.shape[-2:]), vals.expand(lead + vals.shape[-1:])
+    best = vals.amax(-1, keepdim=True)
+    v, pts, ok = vals, [], []
+    for _ in range(3):
+        i = v.argmax(-1, keepdim=True)                     # the first of the largest
+        pts.append(torch.take_along_dim(verts, i[..., None], dim=-2)[..., 0, :])
+        ok.append(torch.take_along_dim(v, i, dim=-1) >= best - tol)
+        v = v.scatter(-1, i, -torch.inf)
+    pts, ok = torch.stack(pts, -2), torch.stack(ok, -2)
+    return torch.where(ok, pts, pts[..., :1, :])
+
+
+def hull_face(d, verts, tol=1e-6):
+    """The support feature triangle (..., 3, 3) of the hull verts (..., V,
+    3) along d (..., 3): `top3_vertices` within tol."""
+    return top3_vertices(verts, hull_dots(d, verts), tol)
 
 
 def clip_face_box(pt, p, R, size, mask, sgn):
@@ -383,21 +492,28 @@ def snap_polish(depth_fn, depth, d, axes):
 # multiccd manifold assembly
 # ---------------------------------------------------------------------------------
 
-def manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p):
+def manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p, margin=None, pos0=None):
     """The 5-slot multiccd manifold from the 4 perturbed re-solves.
 
     depth0 (...,), n0 (..., 3): the unperturbed depth (> 0 penetrating) and
     direction; depth_p (..., 4), pos_p and n_p (..., 4, 3): the perturbed
     depths, witness midpoints and normals. A perturbed contact exists when
-    its configuration still penetrates. Contact 0 sits at the mean of the
-    valid perturbed witnesses with normal n0. All five share dist =
-    -depth0; contact k is dropped when within _DEDUP of an earlier kept
-    one. Returns (dist (..., 5), pos (..., 5, 3), n (..., 5, 3)), dropped
-    slots at dist 1e6."""
-    valid = depth_p > 0.0
-    wsum = torch.clamp_min(valid.to(pos_p.dtype).sum(-1), 1.0)
-    pos0 = torch.where(valid[..., None], pos_p, 0.0).sum(-2) / wsum[..., None]
-    keep = torch.cat([valid.any(-1, keepdim=True), valid], -1)
+    its configuration still penetrates, or with `margin` (broadcasting
+    against depth0) when it is deeper than -margin (the mesh pairs: MuJoCo
+    emits their manifolds in the margin shell). Contact 0 sits at the mean
+    of the valid perturbed witnesses, or at `pos0` (..., 3) where given
+    (and then exists when depth0 > -margin), with normal n0. All five share
+    dist = -depth0; contact k is dropped when within _DEDUP of an earlier
+    kept one. Returns (dist (..., 5), pos (..., 5, 3), n (..., 5, 3)),
+    dropped slots at dist 1e6."""
+    valid = depth_p > 0.0 if margin is None else depth_p > -margin[..., None]
+    if pos0 is None:
+        wsum = torch.clamp_min(valid.to(pos_p.dtype).sum(-1), 1.0)
+        pos0 = torch.where(valid[..., None], pos_p, 0.0).sum(-2) / wsum[..., None]
+        any_valid = valid.any(-1, keepdim=True)
+    else:
+        any_valid = (depth0 > (0.0 if margin is None else -margin))[..., None]
+    keep = torch.cat([any_valid, valid], -1)
     pos = torch.cat([pos0[..., None, :], pos_p], -2)
     nrm = torch.cat([n0[..., None, :], n_p], -2)
     kept = [keep[..., 0]]

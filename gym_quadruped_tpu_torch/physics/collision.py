@@ -8,18 +8,17 @@ pair owns a fixed number of slots, always computed and masked later by
 (robot); `dist` is the signed separation (negative = penetration) and `pos`
 the midpoint.
 
-Ported pair groups: plane against sphere, capsule, cylinder and box; world
-box against sphere and capsule; the heightfield against sphere (the
-sphere against the triangles of the cells under it), capsule (its end
-spheres and 5 interior samples), box and cylinder (one CCD contact per
-triangular prism of the footprint, plus 4 local samples); sphere-sphere,
-sphere-capsule, sphere-cylinder, sphere-box, capsule-capsule,
-capsule-cylinder and cylinder-cylinder (both as capsule pairs, the
-reference's approximation), capsule-box and cylinder-box (the CCD of
-physics/ccd.py) and box-box: every group of the flat and perlin scenes of
-go2, spot, aliengo, b2 and hyqreal2, of go1/flat, of go2's ramp, slippery
-and stairs and of hyqreal2's random_boxes. `collide` raises
-NotImplementedError for any other group (the mesh pairs).
+Ported pair groups: every type of the layout. Plane against sphere,
+capsule, cylinder, box and mesh; world box against sphere and capsule; the
+heightfield against sphere (the sphere against the triangles of the cells
+under it), capsule (its end spheres and 5 interior samples), box, cylinder
+and mesh (one CCD contact per triangular prism of the footprint, plus 4
+local samples); sphere-sphere, sphere-capsule, sphere-cylinder, sphere-box,
+capsule-capsule, capsule-cylinder and cylinder-cylinder (both as capsule
+pairs, the reference's approximation), capsule-box and cylinder-box (the
+CCD of physics/ccd.py), box-box, and the convex mesh hulls against a sphere,
+a box and one another (physics/ccd.py's hull support): every compiled
+robot and scene.
 The slot layout (`contact_layout`) covers every pair type of the reference,
 so the static tables agree for every model.
 """
@@ -474,7 +473,8 @@ def _box_box(p1, R1, s1, p2, R2, s2, signs):
 class _Shape(NamedTuple):
     """The support, face and clip functions of a convex geom of the CCD
     (ccd.py), each taking (p, R, *sizes) after the direction or point;
-    `face(d, R)` gives the tuple that `clip_face` takes before d."""
+    `face(d, p, R, *sizes)` gives the tuple that `clip_face` takes before
+    d."""
 
     supval: Callable
     support: Callable
@@ -483,13 +483,81 @@ class _Shape(NamedTuple):
     clip_into: Callable
 
 
-_CAPSULE = _Shape(ccd.supval_cap, ccd.support_cap, ccd.cap_face, ccd.clip_face_cap,
-                  ccd.clip_into_cap)
-_CYLINDER = _Shape(ccd.supval_cyl, ccd.support_cyl, ccd.cyl_face, ccd.clip_face_cyl,
-                   ccd.clip_into_cyl)
-_BOX = _Shape(ccd.supval_box, ccd.support_box, ccd.box_face,
+_CAPSULE = _Shape(ccd.supval_cap, ccd.support_cap, lambda d, p, R, *dims: ccd.cap_face(d, R),
+                  ccd.clip_face_cap, ccd.clip_into_cap)
+_CYLINDER = _Shape(ccd.supval_cyl, ccd.support_cyl, lambda d, p, R, *dims: ccd.cyl_face(d, R),
+                   ccd.clip_face_cyl, ccd.clip_into_cyl)
+_BOX = _Shape(ccd.supval_box, ccd.support_box, lambda d, p, R, size: ccd.box_face(d, R),
               lambda pt, p, R, size, mask, sgn, d: ccd.clip_face_box(pt, p, R, size, mask, sgn),
               ccd.clip_into_box)
+
+
+def _hull_local(p, R, V):
+    """The hulls' vertices V (G, Vmax, 3) at the poses p (B, G, ..., 3), R
+    (B, G, ..., 3, 3): V R' + p, (B, G, ..., Vmax, 3)."""
+    V = V.reshape(V.shape[:1] + (1,) * (p.dim() - 3) + V.shape[1:])
+    return V @ R.transpose(-1, -2) + p[..., None, :]
+
+
+class HullSet(NamedTuple):
+    """The convex hulls of one side of a mesh group's G pairs: their
+    vertices padded to the model's largest hull (G, Vmax, 3), in the geom
+    frame, and the same split by distinct hull: (the pairs that use it
+    (G_h,), or None for all G, its own vertices (V_h, 3), how many rows of
+    the padded table each stands for (V_h,)). A support value over the
+    pairs of one hull runs as one product of all their directions with its
+    own vertices (no pad rows, no batch of tiny products)."""
+
+    padded: torch.Tensor
+    hulls: tuple
+
+    def split(self, u, fn):
+        """fn(directions, hull vertices, multiplicities) over the pairs of
+        each hull: u (B, G, ..., k), the pair axis 1; results keep u's
+        leading shape."""
+        out = None
+        for idx, verts, mult in self.hulls:
+            part = fn(u if idx is None else u.index_select(1, idx), verts, mult)
+            if idx is None:
+                return part
+            if out is None:
+                out = part.new_empty(u.shape[:2] + part.shape[2:])
+            out.index_copy_(1, idx, part)
+        return out
+
+    def supval(self, u):
+        """max of u.x over each pair's hull, u (B, G, ..., 3) local."""
+        return self.split(u, lambda x, V, mult: ccd.supval_rows(x, V))
+
+    def support(self, u):
+        """`ccd.support_verts` over each pair's padded hull, u (B, G, ..., 3)
+        local."""
+        return self.split(u, ccd.support_rows)
+
+
+def _hull_supval(d, p, R, hs: HullSet):
+    """max of d.x over each pair's hull at the pose (p, R): d.p + the support
+    value of the direction in the geom frame."""
+    return _dot(d, p) + hs.supval(ccd._dotR(d, R))
+
+
+def _clip_into_hull(pt, p, R, hs: HullSet):
+    """`ccd.clip_into_hull` of pt into each pair's hull at the pose (p, R),
+    its support points taken in the geom frame."""
+    return ccd.clip_into_hull(pt, _hull_local(p, R, hs.padded),
+                              support=lambda g: p + ccd._dotRT(hs.support(ccd._dotR(g, R)), R))
+
+
+# A convex mesh as a CCD geom: its `HullSet` is its one size; the support
+# feature is the top-3 vertex triangle (`ccd.hull_face`), and the volume clip
+# Frank-Wolfe's
+_HULL = _Shape(
+    _hull_supval,
+    lambda d, p, R, hs: p + ccd._dotRT(hs.support(ccd._dotR(d, R)), R),
+    lambda d, p, R, hs: (ccd.hull_face(d, _hull_local(p, R, hs.padded)),),
+    lambda pt, p, R, hs, tri, d: ccd.clip_onto_triangle(pt, tri[..., 0, :], tri[..., 1, :],
+                                                        tri[..., 2, :]),
+    _clip_into_hull)
 
 
 def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
@@ -545,7 +613,7 @@ def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
     ta1, ta2 = _dot(t1b, a), _dot(t2b, a)
     bias = (torch.stack([ta1, -ta1, ta2, -ta2], -1)
             * (2.0 * hl1))[..., None] * a[..., None, :]            # (B, G, 4, 3)
-    face0 = shape.face(n0, R1)
+    face0 = shape.face(n0, p1, R1, radius, halflen)
     f_mask, f_sgn = ccd.box_face(-n0, R2)
     w0 = ccd.pocs(
         0.5 * (shape.support(n0, p1, R1, radius, halflen)
@@ -554,7 +622,7 @@ def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
         lambda pt: ccd.clip_face_box(pt, p2, R2, size, f_mask, f_sgn))
     # the witness's 2 starts stacked on an axis after the 4 configurations
     u = lambda x: x.unsqueeze(3)
-    face_p = [u(f) for f in shape.face(n_p, R1p)]
+    face_p = [u(f) for f in shape.face(n_p, p1p, R1p, rad1, hl1)]
     bmask, bsgn = (u(f) for f in ccd.box_face(-n_p, R2p))
     p1s, R1s, p2s, R2s = u(p1p), u(R1p), u(p2p), u(R2p)
     start = 0.5 * (xa + xb) + bias
@@ -565,6 +633,137 @@ def _ccd_box(shape: _Shape, p1, R1, radius, halflen, p2, R2, size, signs):
         lambda pt: shape.clip_into(pt, p1s, R1s, rad2, hl2),
         lambda pt: ccd.clip_into_box(pt, p2s, R2s, size2))
     return ccd.manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p)
+
+
+# ---------------------------------------------------------------------------------
+# mesh pairs: convex hulls given by their vertices V (G, Vmax, 3) in the geom
+# frame, padded to the model's largest hull (pads are the geom's origin, an
+# interior point, where a hull's support is taken over every row)
+# ---------------------------------------------------------------------------------
+
+_MESH_EPS = 1.75e-3   # the mesh pairs' multiccd tilt
+
+
+def _plane_mesh(ppos, pmat, gpos, gmat, verts, nbr, nvert, rbound, margin):
+    """Plane against a convex mesh hull, MuJoCo's mjc_PlaneConvex as the
+    reference decoded it: contact 0 at the support vertex along -n (the
+    first on ties), its position shifted to half depth; then up to 2 of its
+    hull-graph neighbours (nbr (G, Vmax, D), -1 padded), in adjacency
+    order, each taken when closer than margin to the plane and at least 0.3
+    rbound from contact 0's position. nvert (G,) live rows (pads at 1e9),
+    rbound and margin (G,). 3 slots, dropped ones at 1e9."""
+    n = pmat[..., :, 2]                                                # (B, G, 3)
+    W = _hull_local(gpos, gmat, verts)                                 # (B, G, V, 3)
+    pad = torch.arange(verts.shape[-2], device=W.device) >= nvert[:, None]
+    d = torch.where(pad, 1e9, (W @ n[..., None])[..., 0] - _dot(n, ppos)[..., None])
+    i0 = d.argmin(-1)                                                  # the first of the least
+    dist0 = torch.take_along_dim(d, i0[..., None], -1)[..., 0]
+    pos0 = torch.take_along_dim(W, i0[..., None, None], -2)[..., 0, :] - (0.5 * dist0)[..., None] * n
+    cand = nbr[torch.arange(nbr.shape[0], device=W.device), i0]       # (B, G, D)
+    safe = torch.clamp_min(cand, 0)
+    dc = torch.take_along_dim(d, safe, -1)
+    Wc = torch.take_along_dim(W, safe[..., None], -2)                  # (B, G, D, 3)
+    far = _norm(Wc - pos0[..., None, :]) >= 0.3 * rbound[:, None]
+    valid = (cand >= 0) & (dc < margin[:, None]) & far
+    rank = torch.cumsum(valid.to(torch.int64), -1) - 1
+    dists, poss = [dist0], [pos0]
+    for k in range(2):
+        sel = (valid & (rank == k)).to(d.dtype)
+        got = sel.sum(-1) > 0
+        dk = (sel * dc).sum(-1)
+        pk = (sel[..., None] * Wc).sum(-2) - (0.5 * dk)[..., None] * n
+        dists.append(torch.where(got, dk, 1e9))
+        poss.append(torch.where(got[..., None], pk, pos0))
+    return torch.stack(dists, -1), torch.stack(poss, -2), n[..., None, :].expand(n.shape[:-1] + (3, 3))
+
+
+def _sphere_mesh(c, r, p2, R2, hs2: HullSet):
+    """Sphere (geom 1) against a convex hull: the least depth over the
+    sphere's support c + r n and the hull's by `ccd.best_axis` over two
+    starts (the centers' axis, the vertex mean's) and 20 rounds of
+    `ccd.pattern_refine`; the contact at the midpoint of the two surfaces.
+    One slot."""
+    W2 = _hull_local(p2, R2, hs2.padded)
+    c_n, p2_n, R2_n = c[..., None, :], p2[..., None, :], R2[..., None, :, :]
+
+    def depth_fn(d):                        # (B, G, N, 3) -> (B, G, N)
+        return _dot(d, c_n) + r[:, None] + _hull_supval(-d, p2_n, R2_n, hs2)
+
+    depth0, d0 = ccd.best_axis(depth_fn, torch.stack([p2 - c, W2.mean(-2) - c], -2))
+    depth, n = ccd.pattern_refine(depth_fn, d0, depth0, rounds=20)
+    dist = -depth
+    pos = c + (r + 0.5 * dist)[..., None] * n
+    return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _feature_tangent(f1, f2, rounds=8):
+    """Alternating projections between two support-feature triangles (...,
+    3, 3) from f1's first vertex: the tangential witness point (..., 3)."""
+    tri = lambda f: (f[..., 0, :], f[..., 1, :], f[..., 2, :])
+    w = f1[..., 0, :]
+    for _ in range(rounds):
+        w = ccd.clip_onto_triangle(w, *tri(f1))
+        w = ccd.clip_onto_triangle(w, *tri(f2))
+    return w
+
+
+def _hull_hull_witness(W1, W2, n, tol=1e-5):
+    """Witness of a hull-hull contact along the unit direction n (..., 3):
+    the alternating projections between the two support features (the top
+    3 vertices of each side within tol), lifted midway between the two
+    support planes."""
+    v1, v2 = ccd.hull_dots(n, W1), ccd.hull_dots(-n, W2)
+    s1, s2 = v1.amax(-1), -v2.amax(-1)
+    w = _feature_tangent(ccd.top3_vertices(W1, v1, tol), ccd.top3_vertices(W2, v2, tol))
+    return w + (0.5 * (s1 + s2) - _dot(w, n))[..., None] * n
+
+
+def _mesh_mesh(p1, R1, hs1: HullSet, p2, R2, hs2: HullSet, margin):
+    """Convex hull against convex hull (a box as its 8 corners too) with the
+    5-slot multiccd manifold, as the reference decoded MuJoCo's: depth and
+    normal by `ccd.best_axis` over two starts and 48 rounds of refinement;
+    contact 0 at the hull-hull witness; the 4 re-solves tilted by 1.75e-3
+    (12 rounds from r0 8e-3 each, batched on an axis of 4), whose witness
+    features are chosen on the tilted hulls and taken at the untilted
+    vertices, lifted between the untilted support planes; existence aware
+    of the margin (G,). hs1 and hs2 the two sides' `HullSet`s; poses (B,
+    G, ...)."""
+    W1, W2 = _hull_local(p1, R1, hs1.padded), _hull_local(p2, R2, hs2.padded)   # (B, G, V, 3)
+    W1_n, W2_n = W1[..., None, :, :], W2[..., None, :, :]
+    p1_n, R1_n, p2_n, R2_n = p1[..., None, :], R1[..., None, :, :], p2[..., None, :], \
+        R2[..., None, :, :]
+
+    def depth_fn(d):                        # (B, G, N, 3) -> (B, G, N)
+        return _hull_supval(d, p1_n, R1_n, hs1) + _hull_supval(-d, p2_n, R2_n, hs2)
+
+    d0_depth, d0 = ccd.best_axis(depth_fn, torch.stack([p2 - p1, W2.mean(-2) - W1.mean(-2)], -2))
+    depth0, n0 = ccd.pattern_refine(depth_fn, d0, d0_depth, rounds=48)
+    w0 = _hull_hull_witness(W1, W2, n0)
+
+    Ra, Rb = ccd.perturb_rots(n0, eps=_MESH_EPS)                       # (B, G, 4, 3, 3)
+    tilt = lambda W, p, Rk: ((W - p[..., None, :])[..., None, :, :] @ Rk.transpose(-1, -2)
+                             + p[..., None, None, :])
+    W1p, W2p = tilt(W1, p1, Ra), tilt(W2, p2, Rb)                      # (B, G, 4, V, 3)
+    # the tilted hulls' support values in the geom frames: W1p = p1 + Ra R1 V1
+    R1p, R2p = Ra @ R1[..., None, :, :], Rb @ R2[..., None, :, :]      # (B, G, 4, 3, 3)
+    p1p, p2p = p1[..., None, :], p2[..., None, :]
+
+    def depth_fn_p(d):                      # (B, G, 4, 3) or (B, G, 4, N, 3)
+        if d.dim() == 4:
+            return _hull_supval(d, p1p, R1p, hs1) + _hull_supval(-d, p2p, R2p, hs2)
+        return (_hull_supval(d, p1p[..., None, :], R1p[..., None, :, :], hs1)
+                + _hull_supval(-d, p2p[..., None, :], R2p[..., None, :, :], hs2))
+
+    n0b = n0[..., None, :].expand(n0.shape[:-1] + (4, 3))
+    depth_p, n_p = ccd.pattern_refine(depth_fn_p, n0b, depth_fn_p(n0b), rounds=12, r0=8e-3)
+    s1 = ccd.hull_dots(n0, W1).amax(-1)
+    s2 = -ccd.hull_dots(-n0, W2).amax(-1)
+    f1 = ccd.top3_vertices(W1_n, ccd.hull_dots(n_p, W1p), 1e-5)
+    f2 = ccd.top3_vertices(W2_n, ccd.hull_dots(-n_p, W2p), 1e-5)
+    w = _feature_tangent(f1, f2)                                       # (B, G, 4, 3)
+    n0k = n0[..., None, :]
+    pos_p = w + (0.5 * (s1 + s2)[..., None] - _dot(w, n0k))[..., None] * n0k
+    return ccd.manifold_from_perturbed(depth0, n0, depth_p, pos_p, n_p, margin=margin, pos0=w0)
 
 
 # ---------------------------------------------------------------------------------
@@ -792,7 +991,8 @@ def _hfield_convex_ccd(dm: DeviceModel, hpos, hmat, gpos, gmat, margin, shape: _
         """The geom's local pose and sizes with k axes after (B, G)."""
         one = (1,) * k
         return (lp.reshape(lp.shape[:2] + one + (3,)), lR.reshape(lR.shape[:2] + one + (3, 3)),
-                *(x.reshape(x.shape[:1] + one + x.shape[1:]) for x in dims))
+                *(x.reshape(x.shape[:1] + one + x.shape[1:]) if torch.is_tensor(x) else x
+                  for x in dims))
 
     fx = (lp[..., 0] / sz[0] + 1.0) * 0.5 * (nc - 1)
     fy = (lp[..., 1] / sz[1] + 1.0) * 0.5 * (nr - 1)
@@ -859,7 +1059,7 @@ def _hfield_convex_ccd(dm: DeviceModel, hpos, hmat, gpos, gmat, margin, shape: _
     got = picked & (depth_k > -margin[:, None])
 
     g1, g2 = geom(1), geom(2)
-    face_k = shape.face(-dir_k, g1[1])
+    face_k = shape.face(-dir_k, *g1)
     # the support tie: with dir_k perpendicular to a prism edge, several
     # vertices are extreme, and only the one inside the geom translated by
     # the depth (the touch lens) is where the two touch
@@ -936,6 +1136,38 @@ def _hfield_cylinder(dm: DeviceModel, hpos, hmat, cpos, cmat, radius, halflen, m
     return _merge_local_samples(margin, dc, pc, nc_, d4, p4, n4)
 
 
+def hfield_span_rbound(m: Model, geom_ids) -> int:
+    """`hfield_span` of a group of heightfield-mesh pairs: a mesh's
+    footprint radius is its geom_rbound (the hull's circumscribed radius)."""
+    cell = 2.0 * float(np.min(np.asarray(m.hfield_size)[:2])) / \
+        (min(m.hfield_nrow, m.hfield_ncol) - 1)
+    rmax = float(np.max(np.asarray(m.geom_rbound)[np.asarray(geom_ids)]))
+    return min(int(np.ceil(2.0 * rmax / cell)) + 2, 8)
+
+
+def _hfield_mesh(dm: DeviceModel, hpos, hmat, gpos, gmat, hs: HullSet, nvert, rbound, margin,
+                 n_span):
+    """Convex mesh hull against the heightfield: the per-prism CCD with the
+    hull as its geom (8 slots; support and witness on the hull's vertices,
+    pads collapsed to vertex 0, since the origin need not lie inside an
+    off-center hull), then the 4 deepest hull vertices, each a point
+    (radius margin/2) against the raised triangles of its cell, merged
+    (`_merge_local_samples`): 12 slots. hs the hulls' `HullSet` (its padded
+    table with the pads collapsed), nvert and rbound (G,)."""
+    V = hs.padded
+    pad = torch.arange(V.shape[-2], device=V.device) >= nvert[:, None]
+    dc, pc, nc_ = _hfield_convex_ccd(dm, hpos, hmat, gpos, gmat, margin, _HULL, (hs,), rbound,
+                                     n_span)
+    lp = ccd._dotR(gpos - hpos, hmat)
+    lR = hmat.transpose(-1, -2) @ gmat
+    d, p, n = _hfield_point_contact(dm, _hull_local(lp, lR, V), (0.5 * margin)[:, None],
+                                    margin[:, None])
+    d4, p4, n4 = _deepest_k(torch.where(pad, 1e6, d), p, n, 4)
+    hm = hmat[:, :, None]
+    return _merge_local_samples(margin, dc, pc, nc_, d4, ccd._dotRT(p4, hm) + hpos[:, :, None],
+                                ccd._dotRT(n4, hm))
+
+
 # ---------------------------------------------------------------------------------
 # contact frame (MuJoCo mju_makeFrame tangents)
 # ---------------------------------------------------------------------------------
@@ -981,11 +1213,26 @@ class Contacts:
         return self.feat[:, 4:7].transpose(1, 2)
 
 
-def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2, margin, span):
-    """One pair group's (dist (B, G, k), pos, normal (B, G, k, 3)), or
-    NotImplementedError for a pair type that is not ported. margin (G,) is
-    the pairs' margin, span the static footprint of a heightfield-convex
-    group (`hfield_span`)."""
+class Hulls(NamedTuple):
+    """A mesh group's static hull tables (None where a side is no mesh):
+    the `HullSet` of geom 1 (a box's 8 corners in a box-mesh group) and of
+    geom 2 (in a heightfield-mesh group with the pads collapsed onto vertex
+    0), geom 2's vertex counts and circumscribed radii (G,) and hull graph
+    (G, Vmax, D), and the footprint span of a heightfield-mesh group."""
+
+    hulls1: HullSet | None
+    hulls2: HullSet
+    nvert2: torch.Tensor
+    rbound2: torch.Tensor
+    nbr2: torch.Tensor
+    span: int | None
+
+
+def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2, margin, aux):
+    """One pair group's (dist (B, G, k), pos, normal (B, G, k, 3)). margin
+    (G,) is the pairs' margin; aux the static footprint of a
+    heightfield-convex group (`hfield_span`), a mesh group's `Hulls`, else
+    None."""
     signs = dm.const('box_corner_signs', lambda: _BOX_CORNER_SIGNS)
     up = dm.const('up', lambda: np.array([0.0, 0.0, 1.0]))   # normal of coincident centers
     if key == (GEOM_PLANE, GEOM_SPHERE):
@@ -1007,9 +1254,20 @@ def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2, margin, span):
     if key == (GEOM_HFIELD, GEOM_CAPSULE):
         return _hfield_capsule(dm, p1, R1, p2, R2, s2[:, 0], s2[:, 1], margin)
     if key == (GEOM_HFIELD, GEOM_BOX):
-        return _hfield_box(dm, p1, R1, p2, R2, s2, margin, span, signs)
+        return _hfield_box(dm, p1, R1, p2, R2, s2, margin, aux, signs)
     if key == (GEOM_HFIELD, GEOM_CYLINDER):
-        return _hfield_cylinder(dm, p1, R1, p2, R2, s2[:, 0], s2[:, 1], margin, span)
+        return _hfield_cylinder(dm, p1, R1, p2, R2, s2[:, 0], s2[:, 1], margin, aux)
+    # mesh pairs
+    if key == (GEOM_PLANE, GEOM_MESH):
+        return _plane_mesh(p1, R1, p2, R2, aux.hulls2.padded, aux.nbr2, aux.nvert2, aux.rbound2,
+                           margin)
+    if key == (GEOM_HFIELD, GEOM_MESH):
+        return _hfield_mesh(dm, p1, R1, p2, R2, aux.hulls2, aux.nvert2, aux.rbound2, margin,
+                            aux.span)
+    if key == (GEOM_SPHERE, GEOM_MESH):
+        return _sphere_mesh(p1, s1[:, 0], p2, R2, aux.hulls2)
+    if key in ((GEOM_BOX, GEOM_MESH), (GEOM_MESH, GEOM_MESH)):
+        return _mesh_mesh(p1, R1, aux.hulls1, p2, R2, aux.hulls2, margin)
     # robot-robot pairs, type1 <= type2, normal geom1 -> geom2
     if key == (GEOM_SPHERE, GEOM_SPHERE):
         return _sphere_sphere(p1, s1[:, 0], p2, s2[:, 0], up)
@@ -1031,27 +1289,72 @@ def _group(dm: DeviceModel, key, p1, R1, s1, p2, R2, s2, margin, span):
         return _ccd_box(_CYLINDER, p1, R1, s1[:, 0], s1[:, 1], p2, R2, s2, signs)
     if key == (GEOM_BOX, GEOM_BOX):
         return _box_box(p1, R1, s1, p2, R2, s2, signs)
-    t1, t2 = key
-    raise NotImplementedError(
-        f'narrow phase for {_GEOM_NAMES.get(t1, t1)}-{_GEOM_NAMES.get(t2, t2)} pairs '
-        f'is not ported (mesh pairs are not; ported: plane against sphere, capsule, '
-        f'cylinder and box; world box against sphere and capsule; the heightfield against '
-        f'sphere, capsule, cylinder and box; sphere, capsule, cylinder and box pairs of the '
-        f'robot)')
+    raise AssertionError(key)   # contact_layout keeps only the pair types above
 
 
 @functools.lru_cache(maxsize=64)
 def _hfield_spans(m: Model) -> dict:
     """{(t1, t2): `hfield_span`} of the model's heightfield-convex groups."""
-    return {(t1, t2): hfield_span(m, g2) for t1, t2, _, g2 in _pair_groups(m)
-            if t1 == GEOM_HFIELD and t2 in (GEOM_BOX, GEOM_CYLINDER)}
+    spans = {(t1, t2): hfield_span(m, g2) for t1, t2, _, g2 in _pair_groups(m)
+             if t1 == GEOM_HFIELD and t2 in (GEOM_BOX, GEOM_CYLINDER)}
+    spans.update({(t1, t2): hfield_span_rbound(m, g2) for t1, t2, _, g2 in _pair_groups(m)
+                  if (t1, t2) == (GEOM_HFIELD, GEOM_MESH)})
+    return spans
+
+
+def hull_set(dm: DeviceModel, name, ids, padded, counts) -> HullSet:
+    """The `HullSet` of G pairs whose hulls have the ids `ids` (G,) (equal
+    ids, equal hulls), padded (G, Vmax, 3) and live vertex counts (G,)
+    (numpy). The pad rows of a hull are each the geom origin (an interior
+    point, left out of its vertices) or, collapsed, its vertex 0 (counted
+    in vertex 0's multiplicity)."""
+    hulls = []
+    uniq = np.unique(ids)
+    for h in uniq:
+        at = np.flatnonzero(ids == h)
+        g, n = int(at[0]), int(counts[at[0]])
+        verts = padded[g, :n]
+        mult = np.ones(n)
+        if np.array_equal(padded[g, n:], np.broadcast_to(verts[:1], padded[g, n:].shape)):
+            mult[0] += padded.shape[1] - n
+        idx = None if len(uniq) == 1 else dm.const((name, 'pairs', int(h)), lambda: at)
+        hulls.append((idx, dm.const((name, 'verts', int(h)), lambda: verts),
+                      dm.const((name, 'mult', int(h)), lambda: mult)))
+    return HullSet(dm.const((name, 'padded'), lambda: padded), tuple(hulls))
+
+
+def _hulls(dm: DeviceModel, key, g1, g2) -> Hulls:
+    """The static hull tables of a mesh group on the model's device."""
+    m = dm.m
+    did2 = np.asarray(m.geom_dataid)[g2]
+    nvert2 = m.mesh_vertnum[did2]
+    verts2 = m.mesh_vert[did2]
+    if key[0] == GEOM_MESH:
+        did1 = np.asarray(m.geom_dataid)[g1]
+        hulls1 = hull_set(dm, ('hull1', key), did1, m.mesh_vert[did1], m.mesh_vertnum[did1])
+    elif key[0] == GEOM_BOX:
+        corners = _BOX_CORNER_SIGNS[None] * np.asarray(m.geom_size)[g1][:, None, :]
+        hulls1 = hull_set(dm, ('hull1', key), np.arange(len(g1)), corners, np.full(len(g1), 8))
+    else:
+        hulls1 = None
+    if key[0] == GEOM_HFIELD:         # pads collapse onto vertex 0
+        pad = np.arange(verts2.shape[1])[None] >= nvert2[:, None]
+        verts2 = np.where(pad[..., None], verts2[:, :1], verts2)
+    c = lambda name, make: dm.const(('hull', name, key), make)
+    return Hulls(hulls1=hulls1,
+                 hulls2=hull_set(dm, ('hull2', key), did2, verts2, nvert2),
+                 nvert2=c('nvert2', lambda: m.mesh_vertnum[did2].astype(np.int64)),
+                 rbound2=c('rbound2', lambda: np.asarray(m.geom_rbound)[g2]),
+                 nbr2=c('nbr2', lambda: m.mesh_nbr[did2].astype(np.int64)),
+                 span=_hfield_spans(m).get(key))
 
 
 def group_args(dm: DeviceModel, kin):
     """For each pair-type group in slot order, the arguments of its `_group`
     call on FK results (B envs): the poses and sizes of its geoms 1 and 2,
     the pairs' margins (the sizes and margins are static, gathered once) and
-    the group's heightfield footprint span (None for other groups)."""
+    the group's heightfield footprint span, or a mesh group's `Hulls` (None
+    for other groups)."""
     m = dm.m
     specs, first = contact_layout(m), 0
     for t1, t2, g1, g2 in _pair_groups(m):
@@ -1063,9 +1366,10 @@ def group_args(dm: DeviceModel, kin):
         s1 = dm.const(('pair_size1', key), lambda: m.geom_size[g1])
         s2 = dm.const(('pair_size2', key), lambda: m.geom_size[g2])
         margin = dm.const(('pair_margin', key), lambda: margins)
+        aux = (_hulls(dm, key, g1, g2) if GEOM_MESH in key
+               else _hfield_spans(m).get(key))
         yield (dm, key, kin.geom_xpos[:, i1], kin.geom_xmat[:, i1], s1,
-               kin.geom_xpos[:, i2], kin.geom_xmat[:, i2], s2, margin,
-               _hfield_spans(m).get(key))
+               kin.geom_xpos[:, i2], kin.geom_xmat[:, i2], s2, margin, aux)
 
 
 def collide(dm: DeviceModel, kin) -> Contacts:

@@ -4,10 +4,11 @@ a static row layout.
 Counterpart of gym_quadruped_tpu/physics/constraints.py (mj_makeConstraint /
 mj_projectConstraint). Two groups:
 
-  * simple rows: dof friction loss (Huber), joint limits (one-sided) and,
-    with cone = pyramidal, 2 (condim - 1) one-sided rows per contact slot,
-    culled to the `max_cone` nearest slots before assembly: a dense (B, ns,
-    nv) Jacobian;
+  * simple rows: dof friction loss (Huber), joint limits (one-sided) and
+    the contact slots that are no cone block: with cone = pyramidal and one
+    condim > 1, 2 (condim - 1) one-sided rows per slot, culled to the
+    `max_cone` nearest slots before assembly; else every such slot, unculled
+    (`simple_slot_rows`): a dense (B, ns, nv) Jacobian;
   * cone blocks: elliptic contacts with condim > 1, a padded (B, C, 6, nv)
     Jacobian per slot, culled to the `max_cone` nearest slots before assembly.
 
@@ -17,10 +18,11 @@ Soft-constraint parameters per row:
   aref   = -B (J qvel) - K imp x        (friction rows: no position term)
   R      = max(1 - imp, 1e-4) / imp * diagApprox
 
-Ported: friction-loss rows, joint-limit rows, elliptic cone blocks and the
-culled pyramidal rows of a uniform condim > 1. The frictionless (condim 1)
-and mixed-condim contact rows (the reference's per-slot loop) raise
-NotImplementedError.
+Ported: friction-loss rows, joint-limit rows, elliptic cone blocks, the
+culled pyramidal rows of a uniform condim > 1 and, for every other set of
+simple slots (frictionless condim-1 slots beside elliptic cones, or a
+pyramidal model of mixed condims), the reference's unculled per-slot rows:
+one row per condim-1 slot and 2 (condim - 1) per other slot, in slot order.
 """
 
 from __future__ import annotations
@@ -313,15 +315,81 @@ def _culled_slots(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, slo
 
 
 def pyramidal_rows(lay: ConstraintLayout, max_cone: int | None = None) -> tuple[int, int, int]:
-    """Where `make_efc` puts the pyramidal contact rows among the simple
-    rows: (the first row, rows per slot, slots kept). They follow the
+    """Where `make_efc` puts the culled pyramidal contact rows among the
+    simple rows: (the first row, rows per slot, slots kept). They follow the
     friction-loss and limit rows, 2 (condim - 1) rows for each of the
-    `max_cone` nearest slots (every slot without a cap)."""
+    `max_cone` nearest slots (every slot without a cap). A layout whose
+    simple slots are emitted unculled (`culled_pyramidal` false) has no
+    such rows: (first, 0, 0); its rows are `simple_slot_rows`."""
     ss = lay.simple_con_slots
-    if not len(ss):
+    if not len(ss) or not culled_pyramidal(lay):
         return lay.n_fl + lay.n_lim, 0, 0
     kept = len(ss) if max_cone is None else min(len(ss), max_cone)
     return lay.n_fl + lay.n_lim, 2 * (int(lay.con_condim[ss[0]]) - 1), kept
+
+
+def culled_pyramidal(lay: ConstraintLayout) -> bool:
+    """True when the simple contact slots share one condim > 1 (a pyramidal
+    model such as aliengo): `make_efc` culls them to the `max_cone`
+    nearest. Any other set of simple slots (condim-1 slots beside elliptic
+    cones, or a pyramidal model of mixed condims) is emitted unculled, slot
+    by slot."""
+    cds = set(lay.con_condim[lay.simple_con_slots].tolist())
+    return len(cds) == 1 and min(cds) > 1
+
+
+@functools.lru_cache(maxsize=64)
+def simple_slot_rows(lay: ConstraintLayout) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The unculled per-slot rows, in slot order: for each row, its slot's
+    index into the layout's simple_con_slots, its friction direction i (0
+    for a condim-1 slot's one row) and its sign (0 for that row, else +1
+    then -1 for each i)."""
+    slot, fric, sign = [], [], []
+    for k, s in enumerate(lay.simple_con_slots):
+        cd = int(lay.con_condim[s])
+        if cd == 1:
+            slot.append(k), fric.append(0), sign.append(0.0)
+            continue
+        for i in range(cd - 1):
+            for sg in (1.0, -1.0):
+                slot.append(k), fric.append(i), sign.append(sg)
+    return (np.array(slot, np.int64), np.array(fric, np.int64), np.array(sign, np.float64))
+
+
+def _per_slot_rows(dm: DeviceModel, kin: Kin, cdof, qvel, contacts: Contacts, con_mu,
+                   J_rows, aref_rows, R_rows, act_rows, fl_rows):
+    """Append the unculled per-slot rows of every simple contact slot
+    (`simple_slot_rows`) as one gather over their row tables: J = dir_0 +
+    sign mu_i dir_(1+i), R = rimp inv_t for a condim-1 row and rimp 2 (inv_t
+    + mu_i^2 fri_inv_i) for the others, each row with its slot's include."""
+    m = dm.m
+    lay = constraint_layout(m)
+    ss = lay.simple_con_slots
+    B, nv = qvel.shape
+    p = _culled_slots(dm, kin, cdof, qvel, contacts, ss, 'simple', None)
+    slot_np, fric_np, sign_np = simple_slot_rows(lay)
+    slot = dm.const(('simple', 'row_slot'), lambda: slot_np)
+    fric = dm.const(('simple', 'row_fric'), lambda: fric_np)
+    sign = dm.const(('simple', 'row_sign'), lambda: sign_np)
+    frictionless = dm.const(('simple', 'row_cd1'), lambda: sign_np == 0.0)
+    inv_t = dm.const(('simple', 'inv_t'), lambda: m.body_invweight0[lay.con_body[ss], 0]
+                     + m.body_invweight0[lay.con_body1[ss], 0])[slot]
+    inv_r = dm.const(('simple', 'inv_r'), lambda: m.body_invweight0[lay.con_body[ss], 1]
+                     + m.body_invweight0[lay.con_body1[ss], 1])[slot]
+    mu = _mu_at(p, con_mu, lay.con_mu[ss])[:, slot]                    # (B, R, 5)
+    mu_i = torch.gather(mu, 2, fric.expand(B, -1)[..., None])[..., 0]  # (B, R)
+    coef = sign * mu_i
+    d_0, d_i = p.dirs[:, slot, 0], p.dirs[:, slot, 1 + fric]          # (B, R, nv)
+    v_0, v_i = p.vel6[:, slot, 0], p.vel6[:, slot, 1 + fric]          # (B, R)
+    fri_inv = torch.where(fric < 2, inv_t, inv_r)   # (t, t, r, r, r)
+    rimp = p.rimp[:, slot]
+    J_rows.append(torch.where(frictionless[:, None], d_0, d_0 + coef[..., None] * d_i))
+    aref_rows.append(-p.Bd[:, slot] * torch.where(frictionless, v_0, v_0 + coef * v_i)
+                     - (p.K * p.imp * p.x)[:, slot])
+    R_rows.append(torch.where(frictionless, rimp * inv_t,
+                              rimp * (2.0 * (inv_t + mu_i * mu_i * fri_inv))))
+    act_rows.append(p.include[:, slot])
+    fl_rows.append(qvel.new_zeros(B, len(slot_np)))
 
 
 def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
@@ -339,11 +407,6 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
     B = qpos.shape[0]
     dtype = qpos.dtype
     ss = lay.simple_con_slots
-    pyr_condims = set(lay.con_condim[ss].tolist())
-    if len(ss) and (len(pyr_condims) != 1 or min(pyr_condims) == 1):
-        raise NotImplementedError(
-            'the frictionless (condim 1) and mixed-condim contact rows are not ported '
-            f'({m.robot}/{m.scene} has {len(ss)} such slots, condims {sorted(pyr_condims)})')
     J_rows, aref_rows, R_rows, act_rows, fl_rows = [], [], [], [], []
 
     # ---- 1. dof friction loss --------------------------------------------------------
@@ -385,11 +448,15 @@ def make_efc(dm: DeviceModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
         act_rows.append(dist < margin)
         fl_rows.append(torch.zeros_like(dist))
 
-    # ---- 2b. pyramidal contact rows, culled to the nearest max_cone slots -------------
-    # per slot 2 (condim - 1) one-sided rows, J = dir_0 +- mu_i dir_i, in the
-    # order (i = 0, +), (i = 0, -), (i = 1, +), ...
+    # ---- 2b. simple contact rows: per slot 2 (condim - 1) one-sided rows, J =
+    # dir_0 +- mu_i dir_i, in the order (i = 0, +), (i = 0, -), (i = 1, +), ...,
+    # culled to the nearest max_cone slots with one condim > 1 (pyramidal);
+    # else every simple slot in slot order, a condim-1 slot's one row J = dir_0
     pyr_sel = None
-    if len(ss):
+    if len(ss) and not culled_pyramidal(lay):
+        _per_slot_rows(dm, kin, cdof, qvel, contacts, con_mu, J_rows, aref_rows, R_rows,
+                       act_rows, fl_rows)
+    elif len(ss):
         _, nrows, _ = pyramidal_rows(lay)
         p = _culled_slots(dm, kin, cdof, qvel, contacts, ss, 'pyr', max_cone)
         inv_t = p.table('inv_t', lambda: m.body_invweight0[lay.con_body[ss], 0]

@@ -280,12 +280,14 @@ def test_step_on_card_matches_cpu_f64_pyramidal(card, robot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('ns', [148, 160])
+@pytest.mark.parametrize('ns', [148, 160, 402, 443, 1058])
 @pytest.mark.parametrize('form', ['solve_batched', 'solve_batched_bt'])
 def test_newton_kernel_pyramidal_sizes(card, ns, form):
-    # aliengo's ns (148) and the kernel's cap (160), C = 0: about 70% of the
-    # rows active, so every 32-row word of the active-row ballot has some;
-    # odd envs' dense rows take the dense J' diag(cw) J, as pyramidal rows do
+    # aliengo's ns (148), the old cap (160), mini_cheetah/flat's (402),
+    # go1's (443) and mini_cheetah/perlin's (1,058, one env per block),
+    # C = 0: about 70% of the rows
+    # active, so every 32-row word of the active-row ballot has some; odd
+    # envs' dense rows take the dense J' diag(cw) J, as pyramidal rows do
     M, a_smooth, efc = synthetic_rows(4097, nv=18, ns=ns, C=0, device=card)
     for w in range(0, ns, 32):
         assert bool(efc.active[:, w:w + 32].any(0).all()), w

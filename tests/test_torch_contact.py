@@ -7,6 +7,7 @@ both sides compute the same f64 rows with sums in another order.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -120,21 +121,35 @@ def test_top_k_cull_matches(spot):
         assert float(full[b].abs().sum()) == float(f[b].abs().sum())
 
 
-def test_unported_branches_raise():
-    def port(robot, scene):
-        jm = jload(robot, scene)
-        return jm, to_device(from_arrays({f.name: getattr(jm, f.name)
-                                          for f in dataclasses.fields(jm)}), 'cpu', torch.float64)
-    # mini_cheetah/flat's mesh groups (plane-mesh first) are not ported
-    jm, dm = port('mini_cheetah', 'flat')
-    q = torch.as_tensor(jm.key_qpos[:1])
-    with pytest.raises(NotImplementedError, match='plane-mesh'):
-        pcol.collide(dm, pkin.fk(dm, q))
-    # go1/flat's narrow phase is, but not its frictionless (condim 1) contact
-    # rows, the reference's per-slot loop
-    jm, dm = port('go1', 'flat')
+ARCHIVES = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / 'gym_quadruped_tpu'
+                                   / 'models' / 'compiled').glob('*.npz'))
+
+
+@pytest.mark.parametrize('archive', ARCHIVES)
+def test_unported_branches_raise(archive):
+    """No branch is left unported: on each of the 20 compiled archives the
+    port's `collide` and `make_efc` run on the keyframe (mesh groups, the
+    frictionless and mixed-condim rows among them) without raising, and the
+    slot count S, the simple rows ns and the cone blocks C equal the
+    reference's layout (its culled pyramidal rows for one condim > 1, else
+    every simple row; at most 32 cone blocks)."""
+    robot, scene = archive.split('-')
+    jm = jload(robot, scene)
+    dm = to_device(from_arrays({f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)}),
+                   'cpu', torch.float64)
     qpos = torch.as_tensor(jm.key_qpos[:1])
     qvel = torch.zeros(1, jm.nv, dtype=torch.float64)
     kin = pkin.fk(dm, qpos)
-    with pytest.raises(NotImplementedError, match='frictionless'):
-        pcon.make_efc(dm, kin, qpos, qvel, pcol.collide(dm, kin), pkin.cdof(dm, kin))
+    con = pcol.collide(dm, kin)
+    efc = pcon.make_efc(dm, kin, qpos, qvel, con, pkin.cdof(dm, kin), max_cone=32)
+    lay = jcon.constraint_layout(jm)
+    ss = lay.simple_con_slots
+    condims = set(np.asarray(lay.con_condim)[ss].tolist())
+    if len(condims) == 1 and min(condims) > 1:
+        ns = len(lay.fl_dofs) + len(lay.lim_jnts) + min(32, len(ss)) * 2 * (min(condims) - 1)
+    else:
+        ns = lay.n_simple
+    assert con.feat.shape == (1, 7, jcol.total_contact_slots(jm))
+    assert efc.J.shape[1:] == (ns, jm.nv)
+    assert efc.con_J.shape[1] == min(32, len(lay.cone_slots))
+    assert bool(torch.isfinite(con.feat).all()) and bool(torch.isfinite(efc.J).all())

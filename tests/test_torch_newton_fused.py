@@ -231,13 +231,13 @@ def _meta_rows(nv=18, ns=24, C=10, dtype=torch.float32):
 
 
 @pytest.mark.parametrize('case,match', [
-    ('f64', 'float32'), ('nv33', 'nv <= 32'), ('C33', 'C <= 32'), ('ns161', 'ns <= 160'),
+    ('f64', 'float32'), ('nv33', 'nv <= 32'), ('C33', 'C <= 32'), ('ns1089', 'ns <= 1088'),
     ('strided', 'contiguous'), ('mixed', 'one device'), ('shape', 'expected warmstart'),
     ('iterations_out', 'int32')])
 def test_kernel_path_raises_on_inputs_it_does_not_take(case, match):
     # A tensor off the CPU takes the kernel path, which checks its inputs
     # before it builds or launches anything: meta tensors reach it here.
-    sizes = {'nv33': {'nv': 33}, 'C33': {'C': 33}, 'ns161': {'ns': 161}}.get(case, {})
+    sizes = {'nv33': {'nv': 33}, 'C33': {'C': 33}, 'ns1089': {'ns': 1089}}.get(case, {})
     dtype = torch.float64 if case == 'f64' else torch.float32
     M, a_smooth, efc = _meta_rows(dtype=dtype, **sizes)
     kwargs = {}
