@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""CPU f32 run of chip_smoke.py's sensor phases (42-46) or MPC phases
-(47-50) at a small batch.
+"""CPU f32 run of chip_smoke.py's sensor phases (42-46), MPC phases (47-50)
+or mixed-batch phases (68-73) at a small batch.
 
-    python3 chip_rehearse.py [B]        # B=32 by default, ~6 min on 4 threads
-    python3 chip_rehearse.py [B] --mpc  # phases 47-50, MPPI at K=B
+    python3 chip_rehearse.py [B]          # B=32 by default, ~6 min on 4 threads
+    python3 chip_rehearse.py [B] --mpc    # phases 47-50, MPPI at K=B
+    python3 chip_rehearse.py [B] --mixed  # phases 68-73, cfg5 at B envs
 
 It checks the phases' control flow, shapes and bars without a card, and
 prints their lines with the same checks: the launch counts come from
@@ -26,7 +27,7 @@ from gym_quadruped_tpu_torch.physics import engine
 
 
 def stub_cuda():
-    """Run chip_smoke's sensor phases on the CPU: device 'cpu', the
+    """Run chip_smoke's phases on the CPU: device 'cpu', the
     torch.cuda calls and the card-only measurements stubbed, each wrapper
     call of the two kernels counted as a launch."""
     cs.DEVICE = 'cpu'
@@ -61,7 +62,7 @@ def stub_cuda():
 
 
 def main():
-    args = [a for a in sys.argv[1:] if a != '--mpc']
+    args = [a for a in sys.argv[1:] if a not in ('--mpc', '--mixed')]
     B = int(args[0]) if args else 32
     torch.set_num_threads(4)
     stub_cuda()
@@ -72,6 +73,15 @@ def main():
         cs.mpc_card_against_cpu(run)
         cs.mppi_solves(K=B)
         print(f'phases 47-50 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
+        return
+    if '--mixed' in sys.argv:
+        run = cs.cfg5_main_path(B=B)
+        bar = cs.cfg5_against_homogeneous(run)
+        cs.cfg5_card_against_cpu(run)
+        cs.cfg5_resume(run, bar, B=B)
+        cs.cfg5_record(run)
+        cs.cfg5_profile(run)
+        print(f'phases 68-73 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
         return
     run = cs.sensors_main_path(B=B)
     cs.sensors_card_against_cpu(run)

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sensors            # phases 1-2 and 42-46 alone
     python3 chip_smoke.py --mpc                # phases 1-2 and 47-50 alone
     python3 chip_smoke.py --robots             # phases 1-2 and 51-67 alone
+    python3 chip_smoke.py --mixed              # phases 1-2 and 68-73 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -50,7 +51,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      count over every row at full width, and the count of what these inputs
      need, over the active rows and blocks and their nonzeros (the one the
      kernels line reports);
-  9. a device profile of 2 steps: busy share, kernel launches per step, host
+  9. a device profile of 1 step: busy share, kernel launches per step, host
      and device time of the step's stages (smooth, contacts and within it
      narrow_phase and assembly, newton, euler) and of the port's two
      kernels, top kernels; then each pair group of the narrow phase apart
@@ -74,13 +75,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      mm into the floor) and on states pressed 3 cm further (active
      pyramidal rows past row 64, the kernel's third word of active rows),
      then runs phase 5's checks with the pressed states among its cases.
-     100 steps; the CPU comparison starts at step 80 alone: the feet
-     start 12.7 mm above the floor and first touch it after ~25 steps, so
-     steps 0-20 hold no contact;
+     41 steps; the CPU comparison covers steps 40-60 alone (the card
+     stepping its envs on past the main path): the feet start 12.7 mm
+     above the floor and first touch it after ~25 steps, so steps 0-20
+     hold no contact;
  20-24. the same on b2/flat (998 slots, cylinder hips: the plane-,
      sphere- and box-cylinder groups among the narrow phase's; ns 140),
-     phase 20 on the soft states alone, 100 steps, the CPU comparison from
-     step 80 (the feet touch after ~30 steps);
+     phase 20 on the soft states alone, 41 steps, the CPU comparison over
+     steps 40-60 (the feet touch after ~30 steps);
  25-29. the same on hyqreal2/random_boxes (6,173 slots, 400 world boxes;
      ns 158), BASELINE cfg4's scene: phase 25 on the soft states alone, 20
      steps at B=4096, then 4 envs of the last state stepped 20 times more on
@@ -108,7 +110,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      reset, terminated and counted, the others as a plain env.step; its
      time against a plain env.step;
  34. the hyqreal2/random_boxes env (BASELINE cfg4) with a forward+rotate
-     command: random reset, 20 steps at B=4096, env-steps/s, lift rounds,
+     command: random reset, 5 steps at B=4096, env-steps/s, lift rounds,
      peak memory, every state finite;
  35-39. go2/perlin (BASELINE cfg2: 1,607 slots, the heightfield-sphere,
      -capsule and -box groups), the five phases of go2/flat from its start
@@ -117,22 +119,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      deepest penetration until no foot slot is active) and lowered along
      the nearest foot's normal until that foot presses 1 mm into it
      (phase 35 prints both); the agreement's soft states are that start pressed U(0, 5) mm
-     into the terrain (only the feet touch: condim-6 blocks); 50 steps,
+     into the terrain (only the feet touch: condim-6 blocks); 21 steps,
      card against CPU from step 0, Newton timings, the profile
      with the three heightfield groups among the narrow phase's;
  40. go2/perlin's env with random velocity commands (heading U(-pi, pi),
      speed U(0, 1) m/s) and per-env friction: random reset (lift rounds),
-     25 `env.step` at B=4096 beside phase 36's bare rate, 2 SPD + 1 Newton
+     5 `env.step` at B=4096 beside phase 36's bare rate, 2 SPD + 1 Newton
      launches per step, no more host syncs than `step_batched`, peak
      memory, every state and observable finite;
  41. b2/perlin (the heightfield-cylinder group) and hyqreal2/perlin (72
-     prisms per heightfield-box pair), 20 steps each at B=4096 from their
+     prisms per heightfield-box pair), 5 steps each at B=4096 from their
      start on the terrain: steps/s, peak memory, launches, finite, and each
      narrow-phase group's stream and host ms.
  42. BASELINE cfg3: `QuadrupedEnv('aliengo', scene='flat', sensors=(IMU,
      HeightMap))` (noise and bias rate 0.01, a 10 x 10 grid of 0.1 m), the
      example's six observables, per-env friction U(0.5, 1.5): a random reset
-     of B=4096, 100 `env.step` with seeded U(-2, 2) torques and the
+     of B=4096, 60 `env.step` with seeded U(-2, 2) torques and the
      generator, beside the same env without sensors from the same state in
      this call (env-steps/s; the sensors' ms per step); the profiler range
      `sensors` (host and device ms), peak memory; exactly 2 SPD and 1
@@ -144,7 +146,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      moved to the origin, 20 env.steps on the card and in f64 on the CPU at
      a Newton cap of 30: qpos within 1e-3, height_map_z, imu_gyro and imu_acc
      within SENSOR_BARS; the cap-10 readings beside them;
- 44. aliengo/perlin's env with IMU and HeightMap (random reset, 20 steps at
+ 44. aliengo/perlin's env with IMU and HeightMap (random reset, 5 steps at
      B=4096: env-steps/s, peak memory), every env's height_map_z against
      the heightfield's height at the grid points; hyqreal2/random_boxes' env
      with HeightMap alone (409,600 rays against 100 boxes per step), 20
@@ -169,7 +171,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      port's f64 CPU solve;
  48. the closed loop: go2/flat's `QuadrupedEnv` at B=4096 reset from the
      keyframe (joints U(-0.05, 0.05) rad), forward commands U(0.2, 0.6)
-     m/s, 150 env.steps under the MPC (trot, period 0.5 s) with a replan
+     m/s, 121 env.steps under the MPC (trot, period 0.5 s) with a replan
      every 5: exactly 2 SPD and 1 Newton launch per env.step and none in a
      tick, no host sync in a tick, at least 90% of the envs upright at the
      end; mean vx against the command, env-steps/s beside the bare
@@ -190,8 +192,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      hyqreal1/flat (61-65: the mesh groups), five phases each as go2's:
      the kernel, eager f32 and eager f64 solves at caps 10 and 30 and phase
      5's checks at 30 (both forms, B=4096 and 4097; hyqreal1's per-env form
-     against rounding's own reading, `rounding_bars`); 100 steps at B=4096
-     on go1, 20 on mini_cheetah, 50 on hyqreal1 (its window at 30..50)
+     against rounding's own reading, `rounding_bars`); 21 steps at B=4096
+     on go1, 5 on mini_cheetah, 31 on hyqreal1 (its window at 30..50, the
+     card stepping its envs on past the main path, as mini_cheetah's)
      (2 SPD and 1 Newton launch per step); the card against the CPU's f64
      at a Newton cap of 30 (8 envs on go1, 4 on the mesh robots, whose f64
      mesh groups take seconds per step on the CPU), the cap-10 path
@@ -199,14 +202,42 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      envs per SM at (443, 32), 4 at 402); the profile and the narrow phase
      by group.
  66. BASELINE cfg1: `QuadrupedEnv('mini_cheetah', scene='flat')` with a
-     forward command and random actions, 30 env.steps at B=1 and 10 at
+     forward command and random actions, 10 env.steps at B=1 and 3 at
      B=4096 (~1 s each), each beside the bare step's rate in this call;
      launches per step, host synchronisations.
  67. go1/perlin, hyqreal1/perlin and mini_cheetah/perlin (ns 1,058, one env
-     per block) at B=4096, 10, 5 and 5 steps from the start on the
+     per block) at B=4096, 3, 2 and 2 steps from the start on the
      terrain (the mesh scenes take ~4 s per step); the
      last step's kernel against the eager f32 solve; each narrow-phase
      group's ms on the stream (the heightfield-mesh group's among them).
+ 68. BASELINE cfg5 (bench.py's recipe): `MixedQuadrupedEnv` of go2 2,048,
+     aliengo 1,024 and mini_cheetah 1,024 on flat, obs qpos, qvel and
+     contact_state: a random reset, then 3 chunks of 16 env.steps with
+     seeded U(-2, 2) torques through `rollout_with_sensors`, a 16 x 16
+     Camera on aliengo's robotcam shot on that group's qpos after each
+     chunk: env-steps/s from `RateMeter` (a lap per chunk) beside each
+     group's own rate alone at its batch, peak memory, exactly 6 SPD and 3
+     Newton launches per step, no host sync in a step, every group finite
+     and upright; the checkpoint after chunk 1 (phase 71); on the last
+     step each group's Newton kernel against the eager f32 solve and the
+     SPD kernel against its plain version, on the inputs the step gave
+     them;
+ 69. chunk 1's steps again from the reset state (bitwise repeatable, else
+     the gap and the operations PyTorch names as not repeatable), and each
+     group's slice of the mixed state against its own homogeneous env,
+     bit for bit (or within that gap);
+ 70. 4 envs of each group from step 32, at the origin, 20 steps at a
+     Newton cap of 30 through a mixed env on the card in f32 and on the CPU
+     in f64: qpos within 1e-3;
+ 71. the chunk-1 checkpoint (state tuple, generator state, camera readout)
+     restored into a fresh mixed env bit for bit, chunks 2-3 resumed from
+     it under phase 69's rule;
+ 72. each group's 48 steps written to an H5 file with `append_batch` (s,
+     MiB), read back with `H5Reader` and `ProprioceptiveDataset` (x 5, y 1
+     frames, loaded to the card): one batch equal to the recording (left
+     out, with a line that says so, where h5py is not installed);
+ 73. a `profiling.trace` of 2 cfg5 steps: its file and each group's
+     env.step host and device ms.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -214,7 +245,8 @@ Next to each time, rate and memory size the line gives the card's name
 and power limit. Then come the seconds each phase took, the kernels' JSON
 record on the line before the last (go2/perlin's fields prefixed
 `go2_perlin_`, the new robots' `go1_`, `mini_cheetah_`, `hyqreal1_` and
-`<robot>_perlin_`), and {"ok": true, "device": {...}} last.
+`<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`), and {"ok": true,
+"device": {...}} last.
 """
 
 from __future__ import annotations
@@ -229,6 +261,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -236,7 +269,8 @@ import torch
 from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gym_quadruped_tpu_torch.env import ALL_OBS, QuadrupedEnv
+from gym_quadruped_tpu_torch.data import ProprioceptiveDataset
+from gym_quadruped_tpu_torch.env import ALL_OBS, MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
 from gym_quadruped_tpu_torch.env.state import tensor_fields
@@ -264,6 +298,10 @@ from gym_quadruped_tpu_torch.physics.constraints import (
 from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask
 from gym_quadruped_tpu_torch.physics.raycast import world_geoms
 from gym_quadruped_tpu_torch.sensors import IMU, Camera, HeightMap
+from gym_quadruped_tpu_torch.utils import checkpoint, profiling
+from gym_quadruped_tpu_torch.utils.data import H5Reader, H5Writer
+from gym_quadruped_tpu_torch.utils.profiling import RateMeter
+from gym_quadruped_tpu_torch.utils.tree import leaves_with_path
 
 SEED = 0
 BATCH = 4096
@@ -358,10 +396,10 @@ def random_spd(gen, B, n):
     return A.contiguous(), b
 
 
-def median_ms(fn, launches=100, repeats=7):
+def median_ms(fn, launches=100, repeats=7, warmup=5):
     """Median over `repeats` of the mean time of `launches` back-to-back
-    calls, timed with CUDA events after a warm-up."""
-    for _ in range(5):
+    calls, timed with CUDA events after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(repeats):
@@ -1032,7 +1070,9 @@ def newton_timing(last, phase, rounding=False):
     newton_ms = median_ms(lambda: newton_c(*args))
     newton_bt_ms = median_ms(lambda: newton_c(*args_bt))
     newton_wrapper_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w))
-    eager_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w), launches=3, repeats=3)
+    # the eager solve takes 50-180 ms: one warm-up call is enough
+    eager_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w), launches=3, repeats=3,
+                         warmup=1)
     inputs = [M, a_s, w] + [getattr(efc, k) for k in nf.EFC_FLOAT_FIELDS + nf.EFC_MASK_FIELDS]
     n_bytes = sum(x.numel() * x.element_size() for x in inputs + list(outs))
     env_iterations = int(it.sum())
@@ -1071,7 +1111,7 @@ def newton_timing(last, phase, rounding=False):
                f'{newton_ms / dense_bound_ms:.1f}x')
     # the fixed-count form on the same inputs: every env runs 10 iterations
     eager_bt_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w, _tol=0.0),
-                            launches=3, repeats=3)
+                            launches=3, repeats=3, warmup=1)
     bt_flop = newton_flop(nv, ns, C, 10 * B, B)
     bt_bound_ms, bt_bound_by = bound(n_bytes, bt_flop)
     bt_act_flop, _ = newton_needed_work(M, efc, torch.full_like(it, 10))
@@ -1422,7 +1462,7 @@ def env_quarantine(run, phase=33):
                f'envs {t_bad:.1f}, healthy {t_ok:.1f}, plain env.step {t_plain:.1f}; on {smi()}')
 
 
-def env_random_boxes(phase=34, steps=20):
+def env_random_boxes(phase=34, steps=5):
     """Phase 34: the hyqreal2/random_boxes env (BASELINE cfg4) at B=4096 with a
     forward+rotate command: random reset (lift rounds), `steps` steps with
     seeded U(-2, 2) torques, env-steps/s, launches, peak memory, finite."""
@@ -1457,7 +1497,7 @@ def env_random_boxes(phase=34, steps=20):
         raise AssertionError(f'hyqreal2/random_boxes env: launches {spd.launches}, {nf.launches}')
 
 
-def terrain_steps(phase=41, steps=20):
+def terrain_steps(phase=41, steps=5):
     """Phase 41: b2/perlin (the heightfield-cylinder group) and
     hyqreal2/perlin (72 prisms per heightfield-box pair) at B=4096, `steps`
     steps of `step_batched` each from the start on the terrain (phase 36's
@@ -1478,26 +1518,27 @@ def terrain_steps(phase=41, steps=20):
 # The main paths, five phases each (Newton agreement, main path, card against
 # CPU, Newton timing, profile) from `phase`: robot, scene, steps on the card,
 # the steps the CPU comparison starts from, the envs it steps, the agreement
-# phase, the prefix of the kernels line's fields. spot, aliengo and b2 run
-# 100 steps, to keep the whole run near 450 s; go2/flat 100 and go2/perlin
-# 50, each with one CPU window, to make room for phases 51-67. aliengo's and b2's feet
-# start above the floor and touch it after ~25 and ~30 steps: their
-# comparison starts at step 80. hyqreal2/random_boxes' feet touch from step
+# phase, the prefix of the kernels line's fields. spot and go2/flat run 100
+# steps, aliengo and b2 41, go2/perlin 21 (cut for the run's clock: the
+# whole script must stay well under 1,200 s on a slow host). aliengo's and
+# b2's feet start above the floor and touch it after ~25 and ~30 steps:
+# their comparison covers steps 40-60, the card stepping its envs on past
+# the main path. hyqreal2/random_boxes' feet touch from step
 # ~18: its comparison covers steps 20-40, the card stepping its 4 envs on
 # past the main path's 20. go2/perlin (BASELINE cfg2) starts on the terrain
 # (`start_qpos`).
 SCENES = (
     (5, 'spot', 'flat', 100, (0, 80), N_CPU_ENVS, spot_agreement, ''),
     (10, 'go2', 'flat', 100, (0,), N_CPU_ENVS, go2_agreement, 'go2_'),
-    (15, 'aliengo', 'flat', 100, (80,), N_CPU_ENVS,
+    (15, 'aliengo', 'flat', 41, (40,), N_CPU_ENVS,
      lambda dm, phase: pyramidal_agreement(dm, phase, (0.0, PRESS), phase5=True), 'aliengo_'),
-    (20, 'b2', 'flat', 100, (80,), N_CPU_ENVS, pyramidal_agreement, 'b2_'),
+    (20, 'b2', 'flat', 41, (40,), N_CPU_ENVS, pyramidal_agreement, 'b2_'),
     (25, 'hyqreal2', 'random_boxes', 20, (20,), 4, pyramidal_agreement, 'hyqreal2_'),
-    (35, 'go2', 'perlin', 50, (0,), N_CPU_ENVS, terrain_agreement, 'go2_perlin_'),
+    (35, 'go2', 'perlin', 21, (0,), N_CPU_ENVS, terrain_agreement, 'go2_perlin_'),
 )
 
 
-def scene_phases(entry, spd_fields, newton_fields, cpu_cap=None, profile_steps=2):
+def scene_phases(entry, spd_fields, newton_fields, cpu_cap=None, profile_steps=1):
     """One SCENES entry's five phases; fills its kernels-line fields and
     returns its main path's steps/s. `cpu_cap` as `card_against_cpu`'s;
     the profile covers `profile_steps` steps."""
@@ -1528,7 +1569,7 @@ def terrain_phases(spd_fields, newton_fields, rates):
     """Phases 35-39 (go2/perlin, BASELINE cfg2), 40 (its env with random
     velocity commands) and 41 (b2/perlin and hyqreal2/perlin)."""
     rates['go2', 'perlin'] = scene_phases(SCENES[5], spd_fields, newton_fields)
-    run = env_main_path(rates['go2', 'perlin'], 40, 'perlin', 'random', 25, 36)
+    run = env_main_path(rates['go2', 'perlin'], 40, 'perlin', 'random', 5, 36)
     spd_fields['env_perlin_launches'] = run['launches']['spd_solve']
     newton_fields['env_perlin_launches'] = run['launches']['newton_fused']
     del run
@@ -1548,7 +1589,7 @@ IMU_KW = {'accel_noise': 0.01, 'gyro_noise': 0.01, 'accel_bias_rate': 0.01, 'gyr
 IMU_QUIET = {k: 0.0 for k in IMU_KW}
 HEIGHTMAP_KW = {'num_rows': 10, 'num_cols': 10, 'dist_x': 0.1, 'dist_y': 0.1}
 CAMERA_KW = {'width': 64, 'height': 48, 'cam_name': 'robotcam'}
-SENSOR_STEPS = 100
+SENSOR_STEPS = 60
 SENSOR_CPU_START = 50
 # Phase 43, card f32 against CPU f64 over CPU_STEPS env steps at the Newton
 # cap of 30, the largest difference over the steps relative to 1 + max|f64|.
@@ -1825,7 +1866,7 @@ def sensors_card_against_cpu(run, phase=43, cap=GO2_AGREEMENT_ITERATIONS):
                                  f'{out[cap][1][name]} (bar {bar})')
 
 
-def terrain_sensors(phase=44, B=BATCH, steps=20):
+def terrain_sensors(phase=44, B=BATCH, steps=5):
     """Phase 44: heightmaps on terrain. aliengo/perlin's env with the IMU and
     the heightmap: random reset of B envs, `steps` steps, env-steps/s, peak
     memory, 2 SPD + 1 Newton launches per step; every env's height_map_z
@@ -2075,7 +2116,7 @@ NS_RESID_MAX = 3e-2
 # the f64 force scale: the reference's Newton-Schulz against LU gap is 4e-3 N
 # on 165 N (2.4e-5)
 MPC_F64_BAR = 1e-3
-MPC_STEPS = 150
+MPC_STEPS = 121
 MPC_REPLAN = 5
 MPC_CPU_START = 100
 MPC_CPU_ENVS = 4
@@ -2599,24 +2640,25 @@ def mpc_phases(spd_fields, newton_fields):
 # ns 443), mini_cheetah (pyramidal, condims 1 and 3, unculled: ns 402, the
 # mesh groups) and hyqreal1 (elliptic, the mesh groups), each through
 # `scene_phases`: the agreement of `go2_agreement` (three solves at caps 10
-# and 30, then phase 5's checks at 30), 100, 20 and 50 steps (the mesh
+# and 30, then phase 5's checks at 30), 21, 5 and 31 steps (the mesh
 # robots take ~1 s per step at B=4096), the card against the CPU's f64 at a
 # Newton cap of 30 (go1's f32 solve may stop unconverged at 10, as go2's
 # does), the Newton timing and the profile (1 step) with the narrow phase by
 # group. The mesh robots step 4 envs on the CPU: its f64 mesh groups take
 # seconds per step. hyqreal1's feet start above the floor: its comparison
-# covers steps 30-50.
+# covers steps 30-50; it and mini_cheetah's window run past their main
+# paths on the card (`card_continued`).
 MESH_CPU_ENVS = 4
 ROBOT_CPU_CAP = 30
 ROBOT_SCENES = (
-    (51, 'go1', 'flat', 100, (0,), N_CPU_ENVS, None, 'go1_'),
-    (56, 'mini_cheetah', 'flat', 20, (0,), MESH_CPU_ENVS, None, 'mini_cheetah_'),
-    (61, 'hyqreal1', 'flat', 50, (30,), MESH_CPU_ENVS, None, 'hyqreal1_'),
+    (51, 'go1', 'flat', 21, (0,), N_CPU_ENVS, None, 'go1_'),
+    (56, 'mini_cheetah', 'flat', 5, (0,), MESH_CPU_ENVS, None, 'mini_cheetah_'),
+    (61, 'hyqreal1', 'flat', 31, (30,), MESH_CPU_ENVS, None, 'hyqreal1_'),
 )
 # phase 67's steps per perlin scene, and phase 66's env.steps at B=1 and
 # B=4096: the mesh scenes take 1-4 s per step at B=4096 (PERF.md)
-ROBOT_PERLIN_STEPS = {'go1': 10, 'hyqreal1': 5, 'mini_cheetah': 5}
-CFG1_STEPS = {1: 30, BATCH: 10}
+ROBOT_PERLIN_STEPS = {'go1': 3, 'hyqreal1': 2, 'mini_cheetah': 2}
+CFG1_STEPS = {1: 10, BATCH: 3}
 
 
 def robot_agreement(dm, phase):
@@ -2699,6 +2741,434 @@ def robot_phases(spd_fields, newton_fields, rates):
                               **{f'{robot}_perlin_{k}': v for k, v in newton.items()}})
 
 
+# ---- phases 68-73: the mixed-robot batch (BASELINE cfg5) --------------------------------
+
+# bench.py's cfg5 recipe (`measure_mixed_camera`): go2, aliengo and mini_cheetah
+# on flat in the shares 1/2, 1/4, 1/4 of the batch, three observables, seeded
+# U(-2, 2) torques, a 16 x 16 depth camera on aliengo's robotcam shot on the
+# aliengo group's qpos every 16 steps (30 fps at dt = 0.002) through
+# `rollout_with_sensors`, 3 chunks of 16 steps
+CFG5_ROBOTS = ('go2', 'aliengo', 'mini_cheetah')
+CFG5_OBS = ('qpos', 'qvel', 'contact_state')
+CFG5_CAMERA = {'width': 16, 'height': 16, 'cam_name': 'robotcam'}
+CFG5_CHUNK = 16
+CFG5_CHUNKS = 3
+# each group alone at its own batch (phase 68), for its own rate
+CFG5_GROUP_STEPS = 4
+# phase 70: envs of each group from the state after chunk 2, stepped CPU_STEPS times
+CFG5_CPU_ENVS = 4
+# phase 72: the read-back's windows and the batch drawn
+CFG5_X_FRAMES, CFG5_Y_FRAMES = 5, 1
+CFG5_READ_BATCH = 1024
+# checkpoints, recordings and the trace of phases 68-73 (build/ is not committed)
+CFG5_DIR = 'build/cfg5'
+
+
+def cfg5_env(B, **kw):
+    """BASELINE cfg5's mixed env of B envs (go2 B/2, aliengo B/4, mini_cheetah
+    B/4) on DEVICE in f32, a forward command of 0.5 m/s (the env's default)."""
+    counts = (B // 2, B // 4, B - B // 2 - B // 4)
+    return MixedQuadrupedEnv(
+        [(r, c, {'model': load_model(r, 'flat', device=DEVICE, dtype=torch.float32)})
+         for r, c in zip(CFG5_ROBOTS, counts)], scene='flat', state_obs_names=CFG5_OBS, **kw)
+
+
+def group_rows(env):
+    """Each group's rows of the mixed batch."""
+    ends = np.cumsum([0] + env.counts)
+    return [slice(int(a), int(b)) for a, b in zip(ends[:-1], ends[1:])]
+
+
+def state_gap(a, b):
+    """(bitwise equal, max |difference|) over every tensor of two states."""
+    la, lb = leaves_with_path(a), leaves_with_path(b)
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        raise AssertionError('the two states differ in structure')
+    equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+    gap = max((x.double() - y.double()).abs().max().item() for (_, x), (_, y) in zip(la, lb))
+    return equal, gap
+
+
+def nondeterministic_ops(fn):
+    """The first lines of PyTorch's warnings about operations it does not
+    run repeatably, raised while fn() runs under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught})
+
+
+def upright_share(state):
+    """Share of envs whose base z axis is within 26 degrees of vertical."""
+    q = state.qpos[:, 3:7]
+    R22 = 1 - 2 * (q[:, 1] ** 2 + q[:, 2] ** 2)
+    return (R22 > 0.9).float().mean().item()
+
+
+def cfg5_main_path(phase=68, B=BATCH):
+    """Phase 68: BASELINE cfg5, B envs in three robot groups through
+    `MixedQuadrupedEnv`: a random reset, then 3 chunks of 16 `env.step`
+    through `rollout_with_sensors` with the aliengo camera shot after each
+    chunk, one `RateMeter` lap per chunk (each chunk's torques drawn from the
+    generator before it). The launch counts are set to 0 just before the
+    chunks and read just after (exactly 2 SPD and 1 Newton launch per group
+    per step), host syncs of one mixed step (0), every group finite and
+    upright, peak memory; each group's own rate alone at its batch
+    (CFG5_GROUP_STEPS steps in this call). After chunk 1 the state tuple,
+    the generator's state and the camera's readout are checkpointed (phase
+    71). On the last step each group's Newton kernel is held against the
+    eager f32 solve (`newton_timing`) and the SPD kernel against its plain
+    version, on the inputs the step gave them."""
+    env = cfg5_env(B)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state0, _ = env.reset(gen)
+    sync()
+    log(phase, f'cfg5 {"+".join(f"{e.robot_name} {c}" for e, c in zip(env.groups, env.counts))}'
+               f' = {env.batch_size} envs, obs {env.obs_names} (dims '
+               f'{[env._obs_dims[n] for n in env.obs_names]}): reset {time.perf_counter() - t0:.3f}'
+               f' s, lift rounds {[e.lift_rounds for e in env.groups]}; on {smi()}')
+    cam = Camera(env.groups[1].model, **CFG5_CAMERA)
+    meter = RateMeter('env steps')
+    obs_seq, time_seq, action_seq, per_step, last = [], [], [], [], {}
+
+    def step(s, a):
+        before = spd.launches, nf.launches
+        capture = len(per_step) == CFG5_CHUNK * CFG5_CHUNKS - 1
+        with contextlib.ExitStack() as stack:
+            if capture:    # the last step: keep each group's kernel inputs
+                last.update(newton=[], spd=[])
+                newton, smooth = nf.solve_batched, engine.spd_solve_batched
+
+                def newton_kept(M, a_s, efc, warmstart=None, **kw):
+                    last['newton'].append((M, a_s, efc, warmstart))
+                    return newton(M, a_s, efc, warmstart=warmstart, **kw)
+
+                def spd_kept(A, b):
+                    last['spd'].append((A, b))
+                    return smooth(A, b)
+                stack.enter_context(mock.patch.object(nf, 'solve_batched', newton_kept))
+                stack.enter_context(mock.patch.object(engine, 'spd_solve_batched', spd_kept))
+            out = env.step(s, a, gen)
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        obs_seq.append(out[1])
+        time_seq.append(torch.cat([g.time for g in out[0]]))
+        action_seq.append(a)
+        return out
+
+    def shoot(s):
+        return cam.shoot(s[1].qpos)[0]
+
+    state, states, readouts, actions = state0, {0: state0}, [], []
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    out_dir = Path(CFG5_DIR)
+    sync()
+    spd.launches = nf.launches = 0
+    for k in range(CFG5_CHUNKS):
+        acts = torch.rand(CFG5_CHUNK, B, env.nu_max, generator=gen, device=DEVICE) * 4.0 - 2.0
+        with meter.lap(B * CFG5_CHUNK):
+            state, depth = rollout_with_sensors(step, state, acts, shoot, CFG5_CHUNK)
+            meter.sync((state, depth))
+        actions.append(acts)
+        readouts.append(depth)
+        states[CFG5_CHUNK * (k + 1)] = state
+        for s in state:
+            finite &= all_finite(s, {})
+        if k == 0:   # outside the laps: the checkpoint that phase 71 resumes from
+            t1 = time.perf_counter()
+            checkpoint.save(out_dir / 'chunk1.npz', state, gen)
+            checkpoint.save(out_dir / 'chunk1_camera.npz', depth)
+            saved = {'gen': gen.get_state(), 'seconds': time.perf_counter() - t1}
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    laps = ', '.join(f'{n / dt:.1f}' for n, dt in meter.laps())
+    log(phase, f'cfg5 B={B} f32: {CFG5_CHUNKS} chunks of {CFG5_CHUNK} env.steps with the camera '
+               f'after each: {meter.rate():.1f} env-steps/s (RateMeter median of the chunks: '
+               f'{laps}) = {meter.rate() / B:.3f} steps/s; peak device memory from the reset on '
+               f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {smi()}')
+    log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
+               f'{launches["newton_fused"]} (per step {sorted(set(per_step))}); checkpoint after '
+               f'chunk 1 written in {saved["seconds"]:.3f} s; camera depth of the last shot in '
+               f'[{readouts[-1].min().item():.4f}, {readouts[-1].max().item():.4f}] m')
+    if not bool(finite) or not all(bool(torch.isfinite(d).all()) for d in readouts):
+        raise AssertionError('a cfg5 state or camera readout is not finite')
+    G = len(env.groups)
+    if any(k != (2 * G, G) for k in per_step):
+        raise AssertionError(f'expected {2 * G} spd_solve and {G} newton_fused launches per '
+                             f'cfg5 step, got {sorted(set(per_step))}')
+    shares = {e.robot_name: upright_share(s) for e, s in zip(env.groups, state)}
+    heights = ', '.join(f'{e.robot_name} {s.qpos[:, 2].mean().item():.4f}'
+                        for e, s in zip(env.groups, state))
+    log(phase, 'upright share per group ' + ', '.join(f'{r} {v:.4f}' for r, v in shares.items())
+               + f', mean base height {heights}')
+    if min(shares.values()) < UPRIGHT_SHARE:
+        raise AssertionError(f'a cfg5 group is not upright: {shares}')
+    syncs = sync_count(lambda: env.step(state, actions[-1][-1], gen))
+    log(phase, f'host synchronisations reported in one mixed env.step: {syncs[0]} '
+               f'(first: {syncs[1]})')
+    if syncs[0] != 0:
+        raise AssertionError(f'a cfg5 step syncs with the host {syncs[0]} times: {syncs[1]}')
+
+    # each group alone at its own batch, from its slice of the last state
+    alone = {}
+    for g, (e, rows) in enumerate(zip(env.groups, group_rows(env))):
+        s, a = state[g], actions[-1][-1][rows, :e.model.m.nu]
+        solo = RateMeter('env steps')
+        e.step(s, a)
+        sync()
+        with solo.lap(s.qpos.shape[0] * CFG5_GROUP_STEPS):
+            for _ in range(CFG5_GROUP_STEPS):
+                s = e.step(s, a)[0]
+            solo.sync(s)
+        alone[e.robot_name] = solo.rate()
+    combined = B / sum(c / alone[e.robot_name] for e, c in zip(env.groups, env.counts))
+    log(phase, 'each group alone at its batch (' + ', '.join(
+        f'{e.robot_name} {c}: {alone[e.robot_name]:.1f} env-steps/s'
+        for e, c in zip(env.groups, env.counts)) + f'); their times added give '
+        f'{combined:.1f} env-steps/s for B={B}, the mixed batch {meter.rate():.1f} '
+        f'({meter.rate() / combined:.3f} of it); on {smi()}')
+
+    # the last step's kernels on the inputs it gave them
+    fields = {'spd': {}, 'newton': {}}
+    for e, (A, b), newton_in in zip(env.groups, last['spd'][::2], last['newton']):
+        x = spd.spd_solve_batched(A, b)
+        sync()
+        err = rel_err(x, spd.unrolled_chol_solve_torch(A, b))
+        log(phase, f'{e.robot_name} last step: SPD kernel vs plain on its smooth solve '
+                   f'(B={A.shape[0]}, n={A.shape[1]}) rel err {err:.3e}')
+        if not err < 1e-4:
+            raise AssertionError(f'SPD kernel off its plain version by {err} on {e.robot_name}')
+        fields['spd'][f'cfg5_{e.robot_name}_last_step_rel_err'] = err
+        newton = newton_timing(newton_in, phase, e.robot_name in ROUNDING_ROBOTS)
+        fields['newton'].update({f'cfg5_{e.robot_name}_{k}': v for k, v in newton.items()})
+    return {'env': env, 'gen': gen, 'state0': state0, 'states': states, 'actions': actions,
+            'readouts': readouts, 'launches': launches, 'saved': saved, 'fields': fields,
+            'obs': obs_seq, 'time': time_seq, 'action': action_seq, 'rate': meter.rate()}
+
+
+def cfg5_repeat_rule(run, phase):
+    """The bar of phases 69 and 71: 0 (bitwise) when two runs of chunk 1's
+    steps from the reset state agree bit for bit on this device, else the
+    gap between them, with the operations PyTorch names as not repeatable."""
+    env, state = run['env'], run['state0']
+    for a in run['actions'][0]:
+        state = env.step(state, a)[0]
+    equal, gap = state_gap(state, run['states'][CFG5_CHUNK])
+    log(phase, f'two runs of the {CFG5_CHUNK} steps of chunk 1 from the reset state: bitwise '
+               f'equal {equal}, max |difference| {gap:.3e}')
+    if equal:
+        return 0.0
+    s0, a0 = run['state0'], run['actions'][0][0]
+    ops = nondeterministic_ops(lambda: env.step(s0, a0))
+    log(phase, f'operations PyTorch runs non-repeatably in a cfg5 step: {ops or "none named"}; '
+               f'the comparisons below are held to the gap {gap:.3e}')
+    return gap
+
+
+def cfg5_against_homogeneous(run, phase=69):
+    """Phase 69: each group of the mixed batch against that group's own
+    homogeneous env (a `QuadrupedEnv` of its robot alone, at its batch) over
+    chunk 1's steps from the reset state: bit for bit, or within the
+    run-to-run gap (`cfg5_repeat_rule`). Returns the rule's bar."""
+    bar = cfg5_repeat_rule(run, phase)
+    env, want = run['env'], run['states'][CFG5_CHUNK]
+    for g, (e, rows) in enumerate(zip(env.groups, group_rows(env))):
+        alone = QuadrupedEnv(e.robot_name, scene='flat', state_obs_names=CFG5_OBS, model=e.model)
+        s = run['state0'][g]
+        for a in run['actions'][0]:
+            s = alone.step(s, a[rows, :e.model.m.nu])[0]
+        equal, gap = state_gap(s, want[g])
+        log(phase, f'{e.robot_name} ({rows.stop - rows.start} envs): mixed batch vs its '
+                   f'homogeneous env after {CFG5_CHUNK} steps: bitwise equal {equal}, max '
+                   f'|difference| {gap:.3e} (bar {bar:.3e})')
+        if not (equal or gap <= bar):
+            raise AssertionError(f'{e.robot_name}: the mixed batch parts from its homogeneous '
+                                 f'env by {gap}')
+    return bar
+
+
+def cfg5_card_against_cpu(run, phase=70, n=CFG5_CPU_ENVS, cap=ROBOT_CPU_CAP):
+    """Phase 70: the first n envs of each group from the state after chunk 2,
+    moved along the floor to the origin (f32 resolves 0.5-1 mm where the
+    flat scenes spawn, up to 10 km out), stepped CPU_STEPS times at a Newton
+    cap of `cap` through a mixed env of n envs per group on the card in f32
+    and on the CPU in f64, with seeded U(-2, 2) torques: every env's qpos
+    within 1e-3."""
+    torch.set_num_threads(1)
+    env = run['env']
+    start = []
+    for s in run['states'][2 * CFG5_CHUNK]:
+        s = s.map(lambda x: x[:n].clone())
+        s.qpos[:, :2] = 0.0
+        start.append(s)
+    card = MixedQuadrupedEnv([(e.robot_name, n, {'model': e.model}) for e in env.groups],
+                             scene='flat', state_obs_names=CFG5_OBS, solver_iterations=cap)
+    cpu = MixedQuadrupedEnv(
+        [(e.robot_name, n, {'model': load_model(e.robot_name, 'flat', device='cpu',
+                                                dtype=torch.float64)}) for e in env.groups],
+        scene='flat', state_obs_names=CFG5_OBS, solver_iterations=cap)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + phase)
+    actions = torch.rand(CPU_STEPS, card.batch_size, card.nu_max, generator=gen,
+                         device=DEVICE) * 4.0 - 2.0
+    s_card, s_cpu = tuple(start), tuple(s.to('cpu', torch.float64) for s in start)
+    t0 = time.perf_counter()
+    for a in actions:
+        s_card = card.step(s_card, a)[0]
+        s_cpu = cpu.step(s_cpu, a.double().cpu())[0]
+    errs = {e.robot_name: (c.qpos.double().cpu() - f.qpos).abs().max().item()
+            for e, c, f in zip(env.groups, s_card, s_cpu)}
+    log(phase, f'{n} envs of each group, steps {2 * CFG5_CHUNK}..{2 * CFG5_CHUNK + CPU_STEPS} '
+               f'at a Newton cap of {cap}, card f32 vs CPU f64 max |qpos diff|: '
+               + ', '.join(f'{r} {v:.3e}' for r, v in errs.items())
+               + f' ({time.perf_counter() - t0:.1f} s)')
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f'cfg5: card and CPU trajectories differ: {errs}')
+
+
+def cfg5_resume(run, bar, phase=71, B=BATCH):
+    """Phase 71: the checkpoint written after chunk 1 restored into a freshly
+    built mixed env with a fresh generator: every tensor, the generator's
+    state and the camera readout bit for bit as saved; then chunks 2-3 again
+    from it (their torques drawn from the restored generator), the final
+    state and the camera readouts held to phase 69's rule."""
+    out_dir = Path(CFG5_DIR)
+    env = cfg5_env(B)
+    gen = torch.Generator(device=DEVICE)
+    t0 = time.perf_counter()
+    state = checkpoint.restore(out_dir / 'chunk1.npz', run['states'][0], gen)
+    depth = checkpoint.restore(out_dir / 'chunk1_camera.npz', run['readouts'][0])
+    restore_s = time.perf_counter() - t0
+    equal, gap = state_gap(state, run['states'][CFG5_CHUNK])
+    same_gen = torch.equal(gen.get_state(), run['saved']['gen'])
+    size = (out_dir / 'chunk1.npz').stat().st_size / 2**20
+    log(phase, f'restored in {restore_s:.3f} s ({size:.2f} MiB): state bitwise equal {equal} '
+               f'(max |difference| {gap:.3e}), generator state equal {same_gen}, camera readout '
+               f'equal {torch.equal(depth, run["readouts"][0])}')
+    if not (equal and same_gen and torch.equal(depth, run['readouts'][0])):
+        raise AssertionError('the restored checkpoint differs from what was saved')
+    cam = Camera(env.groups[1].model, **CFG5_CAMERA)
+    readouts = []
+    for k in range(1, CFG5_CHUNKS):
+        acts = torch.rand(CFG5_CHUNK, B, env.nu_max, generator=gen, device=DEVICE) * 4.0 - 2.0
+        state, d = rollout_with_sensors(lambda s, a: env.step(s, a, gen), state, acts,
+                                        lambda s: cam.shoot(s[1].qpos)[0], CFG5_CHUNK)
+        readouts.append(d)
+        if not torch.equal(acts, run['actions'][k]):
+            raise AssertionError(f'the restored generator drew other torques for chunk {k + 1}')
+    equal, gap = state_gap(state, run['states'][CFG5_CHUNK * CFG5_CHUNKS])
+    cam_gap = max((a - b).abs().max().item() for a, b in zip(readouts, run['readouts'][1:]))
+    log(phase, f'resumed chunks 2-{CFG5_CHUNKS} against the uninterrupted run: state bitwise '
+               f'equal {equal}, max |difference| {gap:.3e}; camera readouts max |difference| '
+               f'{cam_gap:.3e} (bar {bar:.3e})')
+    if not (equal or gap <= bar) or (bar == 0 and cam_gap != 0):
+        raise AssertionError(f'the resumed run parts from the uninterrupted one by {gap}, its '
+                             f'camera by {cam_gap}')
+
+
+def cfg5_record(run, phase=72):
+    """Phase 72: the 48 steps of each group written to one H5 file per group
+    with `H5Writer.append_batch` (an episode per env: the observables, the
+    time and the torques), then read back with `H5Reader` and
+    `ProprioceptiveDataset` (x_frames 5, y_frames 1, loaded to DEVICE): one
+    batch drawn with `as_batches` equals the in-memory observations
+    exactly (f32 values stored as float64). Left out alone where h5py is
+    not installed on this machine."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log(phase, 'h5py is not installed on this machine: the record and read-back check is '
+                   'left out')
+        return
+    env = run['env']
+    obs = {n: torch.stack([o[n] for o in run['obs']], 1) for n in CFG5_OBS}   # (B, T, d)
+    times = torch.stack(run['time'], 1)
+    acts = torch.stack(run['action'], 1)
+    T = times.shape[1]
+    out_dir = Path(CFG5_DIR)
+    for e, rows in zip(env.groups, group_rows(env)):
+        path = out_dir / f'{e.robot_name}.h5'
+        dims = e.observation_space_dims()
+        t0 = time.perf_counter()
+        H5Writer(path, env=e).append_batch(
+            {**{n: obs[n][rows, :, :dims[n]] for n in CFG5_OBS},
+             'action': acts[rows, :, :e.model.m.nu]}, times[rows])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reader = H5Reader(path)
+        episodes = reader.n_trajectories
+        reader.close()
+        ds = ProprioceptiveDataset(path, ['qpos', 'qvel'], ['contact_state'], CFG5_X_FRAMES,
+                                   CFG5_Y_FRAMES, load_to_memory=True, device=DEVICE)
+        n = min(CFG5_READ_BATCH, len(ds))
+        x, y = next(ds.as_batches(n, seed=SEED))
+        read_s = time.perf_counter() - t0
+        # sample j is window j % W of episode j // W, W windows of 5 steps per episode
+        W = T - max(CFG5_X_FRAMES, CFG5_Y_FRAMES) + 1
+        j = torch.as_tensor(np.random.RandomState(SEED).permutation(len(ds))[:n], device=DEVICE)
+        frames = (j % W)[:, None] + torch.arange(CFG5_X_FRAMES, device=DEVICE)
+        tid = (j // W)[:, None]
+        g_obs = {n: obs[n][rows] for n in CFG5_OBS}
+        want_x = {n: g_obs[n][tid, frames] for n in ('qpos', 'qvel')}
+        want_y = g_obs['contact_state'][tid, frames[:, -CFG5_Y_FRAMES:]]
+        exact = (all(torch.equal(x[n], want_x[n]) for n in want_x)
+                 and torch.equal(y['contact_state'], want_y))
+        log(phase, f'{e.robot_name}: {episodes} episodes of {T} steps written with append_batch '
+                   f'in {write_s:.3f} s, {path.stat().st_size / 2**20:.2f} MiB; read back '
+                   f'({len(ds)} windows, loaded to {DEVICE}) and one batch of {n} '
+                   f'drawn in {read_s:.3f} s: equal to the in-memory observations {exact}')
+        if not (exact and episodes == rows.stop - rows.start):
+            raise AssertionError(f'{e.robot_name}: the H5 read-back differs from the recording')
+
+
+def cfg5_profile(run, phase=73, n_steps=2):
+    """Phase 73: a `profiling.trace` of n_steps cfg5 steps from the last
+    state: the trace file, and each group's env.step (profiler range
+    `mixed/<robot>`) host and device ms per step (the port's own kernels,
+    launched through ctypes, are listed apart: the profiler gives a range
+    only the kernels PyTorch launched in it)."""
+    env, state = run['env'], run['states'][CFG5_CHUNK * CFG5_CHUNKS]
+    action = run['actions'][-1][-1]
+    with profiling.trace(Path(CFG5_DIR) / 'trace') as tr:
+        for _ in range(n_steps):
+            state = env.step(state, action)[0]
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = tr.profile.key_averages()
+    log(phase, f'trace of {n_steps} cfg5 steps: {tr.path} '
+               f'({tr.path.stat().st_size / 2**20:.1f} MiB); on {smi()}')
+    for e in env.groups:
+        ev = [a for a in averages if a.key == f'mixed/{e.robot_name}' and a.device_type != cuda]
+        dev = ev[0].device_time_total / 1e3 / n_steps if ev else 0.0
+        log(phase, f'  {e.robot_name} env.step: host {ev[0].cpu_time_total / 1e3 / n_steps:.2f} '
+                   f'ms, device ' + (f'{dev:.3f} ms' if dev > 0 else 'not measured')
+                   + ' per step')
+    for name in ('newton_kernel', 'spd_solve_kernel'):
+        own = [a for a in averages if a.device_type == cuda and name in a.key]
+        log(phase, f'  {name}: device {sum(a.self_device_time_total for a in own) / 1e3:.3f} ms, '
+                   f'{sum(a.count for a in own)} launches in {n_steps} steps')
+
+
+def mixed_phases(spd_fields, newton_fields):
+    """Phases 68-73: BASELINE cfg5, the mixed batch against the homogeneous
+    envs, card against CPU, checkpoint and resume, record and read back, a
+    trace."""
+    run = cfg5_main_path()
+    spd_fields['cfg5_launches'] = run['launches']['spd_solve']
+    newton_fields['cfg5_launches'] = run['launches']['newton_fused']
+    spd_fields.update(run['fields']['spd'])
+    newton_fields.update(run['fields']['newton'])
+    bar = cfg5_against_homogeneous(run)
+    cfg5_card_against_cpu(run)
+    cfg5_resume(run, bar)
+    cfg5_record(run)
+    cfg5_profile(run)
+
+
 def main():
     try:
         run()
@@ -2721,6 +3191,8 @@ def run():
                         help='run phases 1-2 and 47-50 alone (the MPC and MPPI)')
     parser.add_argument('--robots', action='store_true',
                         help='run phases 1-2 and 51-67 alone (go1, mini_cheetah, hyqreal1)')
+    parser.add_argument('--mixed', action='store_true',
+                        help='run phases 1-2 and 68-73 alone (the mixed batch, BASELINE cfg5)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -2755,13 +3227,15 @@ def run():
     spd_fields = {}
     newton_fields = {}
     rates = {}
-    if args.terrain or args.sensors or args.mpc or args.robots:
+    if args.terrain or args.sensors or args.mpc or args.robots or args.mixed:
         if args.terrain:
             terrain_phases(spd_fields, newton_fields, rates)
         elif args.sensors:
             sensor_phases(spd_fields, newton_fields)
         elif args.robots:
             robot_phases(spd_fields, newton_fields, rates)
+        elif args.mixed:
+            mixed_phases(spd_fields, newton_fields)
         else:
             mpc_phases(spd_fields, newton_fields)
         log('time', f'seconds per phase: {phase_seconds()}; '
@@ -2835,6 +3309,11 @@ def run():
     # Newton kernel past 160 rows, the mesh colliders; BASELINE cfg1's env; their
     # perlin scenes
     robot_phases(spd_fields, newton_fields, rates)
+
+    # ---- 68-73. BASELINE cfg5: go2, aliengo and mini_cheetah in one batch with
+    # aliengo's camera; against the homogeneous envs and the CPU; checkpoint and
+    # resume; record and read back; a trace
+    mixed_phases(spd_fields, newton_fields)
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')

@@ -2,11 +2,14 @@
 terrain (the perlin scenes' heightfield, `terrain.perlin`).
 
 Entry points: `env.QuadrupedEnv(robot, scene, ...)`, whose `reset(generator,
-B)` and `step(state, action)` run B envs, and below it
+B)` and `step(state, action)` run B envs, `env.MixedQuadrupedEnv` (several
+robots in one batch), and below them
 `physics.engine.step_batched(model, qpos, qvel, ctrl)` on a model from
 `models.model.load_model(robot, scene, device=...)`. Every tensor carries a
 leading env-batch axis. Two hand-written CUDA kernels run on the card, each
 with its plain PyTorch version on the CPU: the batched tiny-SPD solve
 (`csrc/spd_solve.cu`) and the fused Newton contact solve
-(`csrc/newton_fused.cu`).
+(`csrc/newton_fused.cu`). Around them: sensors, the MPC, checkpoints and
+profiling (`utils/`), the HDF5 trajectory store (`utils/data/`) and its
+dataset adapter (`data/`).
 """

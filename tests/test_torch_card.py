@@ -2,8 +2,10 @@
 against their plain versions, a short f32 run of the step on the card
 against the same steps in f64 on the CPU (go2/perlin's from the keyframe
 lifted out of the terrain and lowered onto it), and the env layer on the card
-(go2/flat reset and steps, launches per step, card against CPU f64). Every
-test here needs an NVIDIA GPU and skips without one.
+(go2/flat reset and steps, launches per step, card against CPU f64), a
+small mixed-robot batch (launches per step, each group equal to its
+homogeneous env) and a checkpoint resumed on the card. Every test here
+needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from gym_quadruped_tpu_torch.env import QuadrupedEnv
+from gym_quadruped_tpu_torch.env import MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
@@ -25,6 +27,9 @@ from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import collision, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import constraint_layout
 from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask
+from gym_quadruped_tpu_torch.sensors import HeightMap
+from gym_quadruped_tpu_torch.utils import checkpoint
+from gym_quadruped_tpu_torch.utils.tree import leaves_with_path
 
 
 @pytest.fixture
@@ -360,3 +365,56 @@ def test_env_on_card_matches_cpu_f64(card):
         state64 = cpu.step(state64, a.double().cpu())[0]
     err = (state.qpos.double().cpu() - state64.qpos).abs().max().item()
     assert err < 1e-3, err
+
+
+def _assert_same(a, b):
+    la, lb = leaves_with_path(a), leaves_with_path(b)
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    for (key, x), (_, y) in zip(la, lb):
+        assert x.device == y.device and torch.equal(x, y), key
+
+
+@pytest.mark.cuda
+def test_mixed_batch_on_card(card):
+    # go2 64 + mini_cheetah 64: 2 SPD and 1 Newton launch per group and step,
+    # and each group's envs step bit for bit as its own homogeneous env
+    obs = ('qpos', 'qvel', 'contact_state')
+    env = MixedQuadrupedEnv([('go2', 64), ('mini_cheetah', 64)], state_obs_names=obs)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state0, _ = env.reset(gen)
+    actions = torch.rand(5, 128, env.nu_max, generator=gen, device=card) * 4 - 2
+    spd.launches = nf.launches = 0
+    state = state0
+    for a in actions:
+        state, out, *_ = env.step(state, a)
+    assert (spd.launches, nf.launches) == (20, 10)
+    assert out['qpos'].shape == (128, 19) and bool(torch.isfinite(out['qvel']).all())
+    for g, (e, rows) in enumerate(zip(env.groups, (slice(0, 64), slice(64, 128)))):
+        alone = QuadrupedEnv(e.robot_name, state_obs_names=obs, model=e.model)
+        s = state0[g]
+        for a in actions:
+            s = alone.step(s, a[rows])[0]
+        _assert_same(s, state[g])
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card(card, tmp_path):
+    # a go2 env with a heightmap: 3 steps, a checkpoint with the generator,
+    # 5 steps on; restored with a fresh generator, the same 5 steps bit for bit
+    env = QuadrupedEnv('go2', sensors=(HeightMap,), state_obs_names=('qpos', 'height_map_z'),
+                       ground_friction_coeff=(0.5, 1.5))
+    gen = torch.Generator(device=card).manual_seed(2)
+
+    def run(state, generator, n):
+        for _ in range(n):
+            action = torch.rand(32, 12, generator=generator, device=card) * 4 - 2
+            state = env.step(state, action, generator)[0]
+        return state
+
+    state = run(env.reset(gen, 32)[0], gen, 3)
+    checkpoint.save(tmp_path / 'go2.npz', state, gen)
+    want = run(state, gen, 5)
+    fresh = torch.Generator(device=card)
+    restored = checkpoint.restore(tmp_path / 'go2.npz', want, fresh)
+    _assert_same(restored, state)
+    _assert_same(run(restored, fresh, 5), want)
