@@ -46,7 +46,7 @@ def stub_cuda():
     cs.median_ms = host_ms
     cs.range_ms = lambda run, name, n=1: (host_ms(run), None)
     cs.sync_count = lambda fn: (fn(), (0, None))[1]
-    cs.newton_timing = lambda last, phase, rounding=False: {}
+    cs.newton_timing = lambda last, phase, rounding=False, cap=10: {}
     spd_solve, newton = engine.spd_solve_batched, cs.nf.solve_batched
 
     def spd_counted(*args, **kwargs):

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mpc                # phases 1-2 and 47-50 alone
     python3 chip_smoke.py --robots             # phases 1-2 and 51-67 alone
     python3 chip_smoke.py --mixed              # phases 1-2 and 68-73 alone
+    python3 chip_smoke.py --gym                # phases 1-2 and 74-78 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -238,6 +239,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      out, with a line that says so, where h5py is not installed);
  73. a `profiling.trace` of 2 cfg5 steps: its file and each group's
      env.step host and device ms.
+ 74. the single-env gym adapter, `QuadrupedGymEnv(robot='go2')` on the
+     card: `reset(seed=0)`, 60 steps of U(-2, 2) torques (within the
+     action bounds):
+     steps/s beside its core's bare env.step at B=1 in this call, launches
+     per step (2 SPD, 1 Newton) and per Forward refresh (1, 1), host
+     synchronisations per step (the numpy returns cost one stream
+     synchronisation); the SPD kernel (its time, torch.linalg.solve's and
+     the bound) and the Newton kernel (`newton_timing`, at a cap of 30) on
+     the last step's inputs at B=1; every accessor against the CPU's f64
+     adapter at the same state moved to the origin (1e-4, and 1e-3 for
+     those that read the Newton solve, beside a cap-3 control);
+     `Camera.save` on the card (where PIL
+     is installed);
+ 75-77. go2/ramp, go2/slippery and go2/stairs at B=4096 from starts on
+     each scene's feature (`feature_start`): 20 steps (steps/s, peak
+     memory, launches per step), the active slots against the world boxes
+     and the envs touching one at every step (all at step 0, at least 95%
+     at each later step; their pair friction), card
+     against CPU f64 on 4 envs over steps 0-20 at a Newton cap of 30, the
+     last step's Newton kernel against the eager f32 solve, each
+     narrow-phase group's stream ms;
+ 78. parallel/ in one process on nccl: the mesh and `all_hosts_sum`, a
+     `shard_env` rollout of go2/flat at B=4096 over 5 steps against the
+     unsharded one and `MPPI.solve_sharded` against `solve` (K=1024, H=24,
+     cap 4), both bit for bit; one card cannot show scaling.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -245,8 +271,10 @@ Next to each time, rate and memory size the line gives the card's name
 and power limit. Then come the seconds each phase took, the kernels' JSON
 record on the line before the last (go2/perlin's fields prefixed
 `go2_perlin_`, the new robots' `go1_`, `mini_cheetah_`, `hyqreal1_` and
-`<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`), and {"ok": true,
-"device": {...}} last.
+`<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`, the adapter's `gym_`
+and `gym_b1_`, the scenes' `go2_<scene>_`, phase 78's `parallel_`), and
+{"ok": true, "device": {...}} last. A run of some phases alone (a flag)
+prints their fields on a line of its own, then the same last line.
 """
 
 from __future__ import annotations
@@ -256,6 +284,8 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
+import socket
 import subprocess
 import sys
 import time
@@ -274,7 +304,8 @@ from gym_quadruped_tpu_torch.env import ALL_OBS, MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
 from gym_quadruped_tpu_torch.env.state import tensor_fields
-from gym_quadruped_tpu_torch.models.model import GEOM_HFIELD, load_model
+from gym_quadruped_tpu_torch.models.model import GEOM_BOX, GEOM_HFIELD, load_model
+from gym_quadruped_tpu_torch.models.scene_starts import feature_start, world_box_slots
 from gym_quadruped_tpu_torch.mpc import (
     MPPI,
     CentroidalMPC,
@@ -287,6 +318,8 @@ from gym_quadruped_tpu_torch.mpc import qp
 from gym_quadruped_tpu_torch.mpc.centroidal import NX
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
+from gym_quadruped_tpu_torch.parallel import distributed as pdist
+from gym_quadruped_tpu_torch.parallel import rollout, shard_env
 from gym_quadruped_tpu_torch.physics import collision, constraints, engine, kinematics, solver
 from gym_quadruped_tpu_torch.physics.constraints import (
     constraint_layout,
@@ -882,10 +915,11 @@ def active_contacts(efc, lay):
     return n
 
 
-def main_path(dm, phase, steps, windows, n_cpu):
-    """Phases 6, 11, 16, 21, 26, 36 and 41: B=4096 f32 steps of
-    `step_batched` from the start (`start_qpos`) with seeded U(-2, 2)
-    torques and the qacc warm start. Every
+def main_path(dm, phase, steps, windows, n_cpu, start=None, on_step=None):
+    """Phases 6, 11, 16, 21, 26, 36, 41 and 75-77: B=4096 f32 steps of
+    `step_batched` from the start (`start_qpos`, or the (B, nq) `start`)
+    with seeded U(-2, 2) torques and the qacc warm start; `on_step(fwd)`
+    reads each step's Forward. Every
     launch count is set to 0 just before the run and read just after it.
     Checks: every state finite, contacts active, exactly 2 SPD and 1 Newton
     launch per step. Keeps, for the first n_cpu envs and each step of the
@@ -896,7 +930,7 @@ def main_path(dm, phase, steps, windows, n_cpu):
     lay = constraint_layout(m)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     ctrls = torch.rand(steps, BATCH, m.nu, generator=gen, device='cuda') * 4.0 - 2.0
-    qpos = start_qpos(dm)[0].repeat(BATCH, 1)
+    qpos = start_qpos(dm)[0].repeat(BATCH, 1) if start is None else start
     qvel = torch.zeros(BATCH, m.nv, device='cuda')
     warm = torch.zeros(BATCH, m.nv, device='cuda')
     finite = torch.ones((), dtype=torch.bool, device='cuda')
@@ -917,6 +951,8 @@ def main_path(dm, phase, steps, windows, n_cpu):
         warm_in = warm
         qpos, qvel, fwd = engine.step_batched(dm, qpos, qvel, ctrls[t], warmstart=warm)
         warm = fwd.qacc
+        if on_step is not None:
+            on_step(fwd)
         if t in window:
             acts[t] = activation(fwd.efc, C_all)[:n_cpu]
         per_step.append((spd.launches - before[0], nf.launches - before[1]))
@@ -1029,7 +1065,7 @@ def card_against_cpu(dm, run, phase, cap=None):
                                  f'{err}')
 
 
-def newton_timing(last, phase, rounding=False):
+def newton_timing(last, phase, rounding=False, cap=10):
     """Phases 8, 13, 18, 23 and 28: Newton timings on a main path's last
     step inputs, in both forms: the fused kernel (through its C entry
     point, as in phase 4, and through the wrapper), the eager `solver.solve`
@@ -1040,18 +1076,19 @@ def newton_timing(last, phase, rounding=False):
     converged, and there the two f32 solves may end far apart: go2's);
     with `rounding` (ROUNDING_ROBOTS), as `rounding_bars` does: on those
     envs the kernel within ROUNDING_ERR_SLACK x the eager f32 solve's
-    distance from an eager f64 solve, or NEWTON_BAR."""
+    distance from an eager f64 solve, or NEWTON_BAR. `cap` replaces the
+    step's cap of 10 where the inputs are one env's (phase 74: go2's f32
+    solve may stop unconverged at 10, so it runs at go2's cap of 30)."""
     M, a_s, efc, w = last
     B, nv = a_s.shape
     ns, C = efc.J.shape[1], efc.con_J.shape[1]
-    cap = 10
     it = torch.zeros(B, dtype=torch.int32, device='cuda')
     outs = nf.solve_batched(M, a_s, efc, warmstart=w, iterations=cap, iterations_out=it)
     newton_c = nf._library(nv).gqt_newton_fused_f32
     outputs = tuple(torch.empty_like(x) for x in outs)
     tol = solver._TOL[torch.float32]
     args = nf.kernel_args(M, a_s, efc, w, outputs, None, cap, LS_ITERATIONS, tol)
-    args_bt = nf.kernel_args(M, a_s, efc, w, outputs, None, cap, LS_ITERATIONS, 0.0)
+    args_bt = nf.kernel_args(M, a_s, efc, w, outputs, None, 10, LS_ITERATIONS, 0.0)
     it_ref = torch.zeros_like(it)
     ref = solver.solve(M, a_s, efc, warmstart=w, iterations=cap, iterations_out=it_ref)
     done = (it < cap) & (it_ref < cap)
@@ -1069,10 +1106,11 @@ def newton_timing(last, phase, rounding=False):
     rows = efc.active.nonzero()[:, 1]
     newton_ms = median_ms(lambda: newton_c(*args))
     newton_bt_ms = median_ms(lambda: newton_c(*args_bt))
-    newton_wrapper_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w))
+    newton_wrapper_ms = median_ms(lambda: nf.solve_batched(M, a_s, efc, warmstart=w,
+                                                           iterations=cap))
     # the eager solve takes 50-180 ms: one warm-up call is enough
-    eager_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w), launches=3, repeats=3,
-                         warmup=1)
+    eager_ms = median_ms(lambda: solver.solve(M, a_s, efc, warmstart=w, iterations=cap),
+                         launches=3, repeats=3, warmup=1)
     inputs = [M, a_s, w] + [getattr(efc, k) for k in nf.EFC_FLOAT_FIELDS + nf.EFC_MASK_FIELDS]
     n_bytes = sum(x.numel() * x.element_size() for x in inputs + list(outs))
     env_iterations = int(it.sum())
@@ -1199,6 +1237,9 @@ def narrow_phase_groups(dm, run, phase):
     stream time)."""
     kin = kinematics.fk(dm, run['state'][0])
     log(phase, f'narrow phase of {dm.m.robot}/{dm.m.scene} by pair group, on {smi()}:')
+    with OpCount():     # the dispatch mode's first use in a process takes seconds
+        torch.zeros(1, device='cuda').add_(1)
+    torch.cuda.synchronize()
     for args in collision.group_args(dm, kin):   # collide's own gather
         t1, t2 = args[1]
         start = torch.cuda.Event(enable_timing=True)
@@ -2841,21 +2882,9 @@ def cfg5_main_path(phase=68, B=BATCH):
 
     def step(s, a):
         before = spd.launches, nf.launches
-        capture = len(per_step) == CFG5_CHUNK * CFG5_CHUNKS - 1
-        with contextlib.ExitStack() as stack:
-            if capture:    # the last step: keep each group's kernel inputs
-                last.update(newton=[], spd=[])
-                newton, smooth = nf.solve_batched, engine.spd_solve_batched
-
-                def newton_kept(M, a_s, efc, warmstart=None, **kw):
-                    last['newton'].append((M, a_s, efc, warmstart))
-                    return newton(M, a_s, efc, warmstart=warmstart, **kw)
-
-                def spd_kept(A, b):
-                    last['spd'].append((A, b))
-                    return smooth(A, b)
-                stack.enter_context(mock.patch.object(nf, 'solve_batched', newton_kept))
-                stack.enter_context(mock.patch.object(engine, 'spd_solve_batched', spd_kept))
+        if len(per_step) == CFG5_CHUNK * CFG5_CHUNKS - 1:   # the last step: keep its inputs
+            out, last['spd'], last['newton'] = kept_kernel_inputs(lambda: env.step(s, a, gen))
+        else:
             out = env.step(s, a, gen)
         per_step.append((spd.launches - before[0], nf.launches - before[1]))
         obs_seq.append(out[1])
@@ -3169,6 +3198,435 @@ def mixed_phases(spd_fields, newton_fields):
     cfg5_profile(run)
 
 
+# ---- phases 74-78: the single-env gym adapter, go2 on ramp, slippery and stairs,
+# parallel/ on nccl ----------------------------------------------------------------------
+
+# phase 74: the adapter's steps on go2/flat (60: their rate is steady by then, and
+# the run's clock is tight), and where Camera.save writes (build/
+# is not committed)
+GYM_STEPS = 60
+GYM_DIR = 'build/gym'
+# Phase 74 holds each accessor of the card's f32 adapter against the CPU's f64
+# adapter at the same state (moved to the origin), relative to 1 + max|f64|:
+# those of the kinematics and the smooth dynamics within GYM_SMOOTH_BAR (f32
+# rounding of quantities up to ~1e2, as the SPD kernel's 1e-4), and those
+# that read the Forward's Newton solve at the cap of 10 (`work`, the feet's
+# forces) within GYM_SOLVE_BAR. That standing state's solve converges: the
+# card read 5.7e-07-7.2e-07 for `work` and 8.3e-06-1.7e-05 for the forces
+# (NVIDIA H100 80GB HBM3, 700 W, PERF.md), while an f64 solve stopped at a
+# cap of 3 read 8.6e-02 and 1.43 there (the control the phase prints). The
+# feet's contact flags must agree.
+GYM_SMOOTH_BAR = 1e-4
+GYM_SOLVE_BAR = 1e-3
+GYM_CONTROL_CAP = 3
+GYM_SOLVE_ACCESSORS = ('work', 'feet_contact_state')
+GYM_ACCESSORS = (
+    ('qpos', None), ('qvel', None), ('base_pos', None), ('base_ori_quat_wxyz', None),
+    ('simulation_time', None), ('torque_ctrl_setpoint', None), ('base_configuration', None),
+    ('heading_orientation_SO3', None), ('base_ori_euler_xyz', None), ('gravity_vector', None),
+    ('joint_space_state', None), ('kinetic_energy', None), ('work', None),
+    ('legs_mass_matrix', None), ('legs_qfrc_bias', None), ('legs_qfrc_passive', None),
+    ('com', None), ('feet_pos', ('world',)), ('feet_pos', ('base',)),
+    ('feet_jacobians', ('world',)), ('feet_jacobians', ('base',)),
+    ('feet_jacobians_dot', ('world',)), ('feet_jacobians_dot', ('base',)),
+    ('feet_vel', ('world', False)), ('feet_vel', ('base', True)),
+    ('hip_positions', ('world',)), ('hip_positions', ('base',)), ('get_base_inertia', ()),
+    ('base_lin_vel', ('base',)), ('base_ang_vel', ('world',)), ('target_base_vel', ('base',)),
+    ('base_lin_vel_err', ('world',)), ('base_ang_vel_err', ('base',)),
+    ('base_lin_acc', ('base',)), ('feet_contact_state', ('base', True)),
+)
+# phases 75-77: go2's scenes with world geometry, steps on the card and envs
+# stepped on the CPU from step 0
+GO2_SCENES = ('ramp', 'slippery', 'stairs')
+# go2/slippery's feet on the 0.03 surface: a cone of friction 0.03 scales its
+# rows' curvature by ~1/mu^2, and on the last step's converged envs the kernel
+# and the eager f32 solve both end 4.568e-04 from an eager f64 solve and
+# 1.188e-04 from each other (NVIDIA H100 80GB HBM3, 700 W, PERF.md): its
+# last step is held by `rounding_bars`' rule, the kernel within
+# ROUNDING_ERR_SLACK x the eager f32 solve's distance from f64
+ROUNDING_SCENES = ('slippery',)
+SCENE_STEPS = 20
+SCENE_CPU_ENVS = 4
+# every env starts on a world box; at each later step at least this share
+# of the envs still touches one (a stepping trot lifts feet, and a foot on
+# the stairs' nose may slip to the tread below)
+SCENE_TOUCH_SHARE = 0.95
+# phase 78: the env steps of the sharded rollout
+PARALLEL_STEPS = 5
+
+
+def stream_syncs(fn):
+    """The explicit stream synchronisations (`torch.cuda.Stream.synchronize`)
+    in one call of fn(), which CUDA's sync debug mode does not report."""
+    n = [0]
+    real = torch.cuda.Stream.synchronize
+
+    def counted(stream):
+        n[0] += 1
+        return real(stream)
+
+    with mock.patch.object(torch.cuda.Stream, 'synchronize', counted):
+        fn()
+    return n[0]
+
+
+def kept_kernel_inputs(fn):
+    """(fn(), [(A, b) of each SPD wrapper call in engine], [(M, a_s, efc,
+    warmstart) of each Newton wrapper call]) of one call of fn()."""
+    kept = {'spd': [], 'newton': []}
+    newton, smooth = nf.solve_batched, engine.spd_solve_batched
+
+    def newton_kept(M, a_s, efc, warmstart=None, **kw):
+        kept['newton'].append((M, a_s, efc, warmstart))
+        return newton(M, a_s, efc, warmstart=warmstart, **kw)
+
+    def spd_kept(A, b):
+        kept['spd'].append((A, b))
+        return smooth(A, b)
+
+    with mock.patch.object(nf, 'solve_batched', newton_kept), \
+            mock.patch.object(engine, 'spd_solve_batched', spd_kept):
+        out = fn()
+    return out, kept['spd'], kept['newton']
+
+
+def accessor_values(x):
+    """The arrays and scalars of an accessor's value, in order: LegsAttr
+    leg by leg, tuples item by item, None left out."""
+    if x is None:
+        return []
+    if hasattr(x, 'to_list'):
+        return [v for leg in x.to_list() for v in accessor_values(leg)]
+    if isinstance(x, tuple):
+        return [v for item in x for v in accessor_values(item)]
+    return [x]
+
+
+def spd_at(A, b, phase, label):
+    """The SPD kernel on a step's own system (A, b): against its plain
+    version; its time through the C entry point, the plain version's and
+    torch.linalg.solve's, and the bound, as phase 4 does at (4096, 18)."""
+    B, n = b.shape
+    x = spd.spd_solve_batched(A, b)
+    torch.cuda.synchronize()
+    err = rel_err(x, spd.unrolled_chol_solve_torch(A, b))
+    abs_err = (x - spd.unrolled_chol_solve_torch(A, b)).abs().max().item()
+    out = torch.empty_like(b)
+    args = (A.data_ptr(), b.data_ptr(), out.data_ptr(), B, n,
+            torch.cuda.current_stream().cuda_stream)
+    spd_c = spd._library(n).gqt_spd_solve_f32
+    kernel_ms = median_ms(lambda: spd_c(*args))
+    plain_ms = median_ms(lambda: spd.unrolled_chol_solve_torch(A, b), launches=10)
+    library_ms = median_ms(lambda: torch.linalg.solve(A, b[..., None]), launches=20)
+    bound_ms, bound_by = bound(B * (n * n + 2 * n) * 4, B * (n ** 3 / 3 + 2 * n * n))
+    log(phase, f'{label}: SPD kernel at (B={B}, n={n}) vs plain rel err {err:.3e} (max abs '
+               f'{abs_err:.3e}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+               f'torch.linalg.solve {library_ms:.4f} ms, bound {bound_ms:.7f} ms ({bound_by}) = '
+               f'{kernel_ms / bound_ms:.0f}x; on {smi()}')
+    if not err < 1e-4:
+        raise AssertionError(f'SPD kernel off its plain version by {err} at {label}')
+    return {'ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': abs_err}
+
+
+def gym_adapter(phase=74, steps=GYM_STEPS):
+    """Phase 74: `QuadrupedGymEnv(robot='go2')` on the card: `reset(seed=0)`,
+    then `steps` steps of torques drawn U(-2, 2) N m within the action
+    bounds (go2's are unbounded): steps/s beside the bare `env.step` of its core at B=1 in this
+    call; SPD and Newton launches per step (2, 1) and per Forward refresh
+    (1, 1), counted around each call; host synchronisations per step (CUDA's
+    sync debug mode, and the stream synchronisation of the numpy returns).
+    On the last step's own inputs the SPD kernel (`spd_at`) and the Newton
+    kernel (`newton_timing`, at go2's cap of 30: one env's solve may stop
+    unconverged at the step's 10) at B=1. Every accessor against the CPU's f64
+    adapter at the same state moved to the origin (GYM_SMOOTH_BAR,
+    GYM_SOLVE_BAR), beside a control read through an f64 solve stopped at
+    GYM_CONTROL_CAP. `Camera.save` of aliengo's robotcam on the card (where
+    PIL is installed)."""
+    from gym_quadruped_tpu_torch.env.gym_adapter import QuadrupedGymEnv
+
+    env = QuadrupedGymEnv(robot='go2')
+    dm = env.core.model
+    if dm.device.type != 'cuda':
+        raise AssertionError(f'the adapter\'s model lies on {dm.device}')
+    t0 = time.perf_counter()
+    obs = env.reset(seed=0)
+    reset_s = time.perf_counter() - t0
+    low, high = env.core.action_space_bounds()      # unbounded on go2
+    actions = np.random.RandomState(SEED).uniform(np.maximum(low, -2.0), np.minimum(high, 2.0),
+                                                  (steps, dm.m.nu))
+    env.step(actions[0])                        # warm up
+    per_step, kinds = [], set()
+    sync()
+    t0 = time.perf_counter()
+    for a in actions:
+        before = spd.launches, nf.launches
+        obs, reward, term, trunc, info = env.step(a)
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        kinds.add((type(reward).__name__, type(term).__name__, type(trunc).__name__,
+                   type(obs['qpos']).__name__))
+    wall = time.perf_counter() - t0
+    rate = steps / wall
+
+    core = env.core
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state, _ = core.reset(gen, 1)
+    acts = torch.as_tensor(actions, dtype=torch.float32, device=DEVICE)[:, None]
+    core.step(state, acts[0])
+    sync()
+    t0 = time.perf_counter()
+    for a in acts:
+        state = core.step(state, a)[0]
+    sync()
+    bare = steps / (time.perf_counter() - t0)
+    log(phase, f'go2/flat QuadrupedGymEnv on {dm.device}: reset(seed=0) {reset_s:.3f} s; {steps} '
+               f'steps in {wall:.3f} s = {rate:.2f} steps/s; the bare env.step of its core at '
+               f'B=1 in this call {bare:.2f} steps/s (adapter/bare {rate / bare:.3f}); returns '
+               f'{sorted(kinds)}; on {smi()}')
+    env._fwd = None
+    before = spd.launches, nf.launches
+    env.fwd
+    refresh = (spd.launches - before[0], nf.launches - before[1])
+    a = actions[-1]
+    debug = sync_count(lambda: env.step(a))
+    explicit = stream_syncs(lambda: env.step(a))
+    stream_alone = sync_count(lambda: torch.cuda.current_stream().synchronize())
+    core_syncs = sync_count(lambda: core.step(state, acts[-1]))
+    log(phase, f'launches per adapter.step (spd_solve, newton_fused) {sorted(set(per_step))}, '
+               f'per Forward refresh {refresh}; host synchronisations per adapter.step: '
+               f'{debug[0]} reported by the sync debug mode (first: {debug[1]}), which reports '
+               f'{stream_alone[0]} for a stream synchronisation alone; the adapter makes '
+               f'{explicit} stream synchronisation(s) for the numpy returns; its core '
+               f'env.step alone {core_syncs[0]}')
+    if any(k != (2, 1) for k in per_step) or refresh != (1, 1):
+        raise AssertionError(f'adapter launches per step {sorted(set(per_step))}, per '
+                             f'refresh {refresh}')
+    if explicit != 1 or kinds != {('float', 'bool', 'bool', 'ndarray')}:
+        raise AssertionError(f'adapter returns {kinds}; syncs {debug}, {explicit} stream syncs')
+
+    # the last step's kernels on the inputs it gave them, at B=1
+    _, spds, newtons = kept_kernel_inputs(lambda: env.step(a))
+    spd_fields = spd_at(*spds[0], phase, 'go2/flat adapter, its smooth solve')
+    newton = newton_timing(newtons[0], phase, cap=GO2_AGREEMENT_ITERATIONS)
+
+    # every accessor against the CPU's f64 adapter at the same state, at the origin
+    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
+    cpu = QuadrupedGymEnv(robot='go2', model=dm64)
+    env._state.qpos[:, :2] = 0.0
+    env._fwd = None
+    cpu._state = env._state.to('cpu', torch.float64)
+    worst, failures = {}, []
+    for name, args in GYM_ACCESSORS:
+        got, want = (getattr(e, name) if args is None else getattr(e, name)(*args)
+                     for e in (env, cpu))
+        label = name + ('' if not args else f'({", ".join(map(str, args))})')
+        g, w = accessor_values(got), accessor_values(want)
+        flags = [(x, y) for x, y in zip(g, w) if isinstance(y, bool)]
+        nums = [(np.asarray(x, np.float64), np.asarray(y, np.float64))
+                for x, y in zip(g, w) if not isinstance(y, bool)]
+        if len(g) != len(w) or any(x != y for x, y in flags):
+            failures.append(f'{label}: {got} against {want}')
+        err = max(float(np.abs(x - y).max() / (1 + np.abs(y).max())) for x, y in nums)
+        bar = GYM_SOLVE_BAR if name in GYM_SOLVE_ACCESSORS else GYM_SMOOTH_BAR
+        worst[label] = err
+        if not err < bar:
+            failures.append(f'{label} {err:.3e} >= {bar}')
+    smooth = {k: v for k, v in worst.items() if k.split('(')[0] not in GYM_SOLVE_ACCESSORS}
+    top = max(smooth, key=smooth.get)
+    contact = env.feet_contact_state()[0]
+    # the control: the CPU's f64 adapter read through a Forward whose solve
+    # stopped at GYM_CONTROL_CAP, against its own at the cap of 10
+    forces = lambda e: np.concatenate([np.asarray(x) for x in
+                                       e.feet_contact_state('base', True)[2].to_list()])
+    want = cpu.work, forces(cpu)
+    s = cpu._state
+    cpu._fwd = engine.forward(dm64, s.qpos, s.qvel, s.ctrl, solver_iterations=GYM_CONTROL_CAP)
+    control = [float(np.abs(x - y).max() / (1 + np.abs(y).max()))
+               for x, y in zip((cpu.work, forces(cpu)), want)]
+    cpu._fwd = None
+    log(phase, f'{len(GYM_ACCESSORS)} accessors, card f32 against CPU f64 at the same state '
+               f'moved to the origin (of 1 + max|f64|): kinematic and smooth at most '
+               f'{smooth[top]:.3e} ({top}; bar {GYM_SMOOTH_BAR}); from the Forward\'s Newton '
+               f'solve at the cap of 10: work {worst["work"]:.3e}, feet forces '
+               f'{worst["feet_contact_state(base, True)"]:.3e} (bar {GYM_SOLVE_BAR}; an f64 '
+               f'solve stopped at a cap of {GYM_CONTROL_CAP} reads {control[0]:.3e} and '
+               f'{control[1]:.3e} there); feet in contact '
+               f'{[leg for leg in ("FL", "FR", "RL", "RR") if contact[leg]]}')
+    if failures:
+        raise AssertionError('; '.join(failures))
+
+    # Camera.save on the card
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        log(phase, 'PIL is not installed on this machine: Camera.save (depth.png) is left out')
+        return {'launches': per_step, 'refresh': refresh, 'spd': spd_fields, 'newton': newton}
+    cam_dm = load_model('aliengo', 'flat', device=DEVICE)
+    cam = Camera(cam_dm, **CAMERA_KW)
+    qpos = torch.as_tensor(cam_dm.m.key_qpos[0], dtype=torch.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    out = cam.save(GYM_DIR, qpos)
+    save_s = time.perf_counter() - t0
+    files = sorted(f.name for f in out.iterdir())
+    depth = np.load(out / 'depth.npy')
+    same = np.array_equal(depth, cam.shoot(qpos[None])[0][0].cpu().numpy())
+    log(phase, f'Camera.save of aliengo\'s robotcam ({CAMERA_KW["width"]} x '
+               f'{CAMERA_KW["height"]}) on the card with PIL: {files} in {save_s:.3f} s; '
+               f'depth.npy equal to a fresh render {same}, in [{depth.min():.4f}, '
+               f'{depth.max():.4f}] m')
+    if files != ['depth.npy', 'depth.png', 'points.npy', 'seg.npy'] or not same:
+        raise AssertionError(f'Camera.save wrote {files}, depth equal to a render {same}')
+    return {'launches': per_step, 'refresh': refresh, 'spd': spd_fields, 'newton': newton}
+
+
+def go2_scene(scene, phase, steps=SCENE_STEPS):
+    """Phases 75-77: go2 on `scene` at B=4096 in f32 from `feature_start`:
+    `main_path`'s `steps` steps (steps/s, peak memory, launches per step)
+    with the active slots against the world boxes and the envs touching a
+    world box counted every step (every env at step 0, at least
+    SCENE_TOUCH_SHARE of them at each later step, else the scene holds
+    nothing new; the pair friction of those slots); card against CPU f64 on
+    SCENE_CPU_ENVS envs over steps 0-20 at a Newton cap of 30; the last
+    step's Newton kernel against the eager f32 solve (`newton_timing`); each
+    narrow-phase group's stream ms (the world-box groups among them).
+    Returns (launches, Newton fields)."""
+    dm = load_model('go2', scene, device='cuda', dtype=torch.float32)
+    m = dm.m
+    lay = constraint_layout(m)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    t0 = time.perf_counter()
+    start = feature_start(dm, BATCH, gen)
+    sync()
+    parts = [('start', time.perf_counter())]
+    boxes = int(((m.geom_bodyid == 0) & (m.geom_type == GEOM_BOX)).sum())
+    log(phase, f'go2/{scene}: {boxes} world boxes, {len(lay.con_geom1)} contact slots of which '
+               f'{int(world_box_slots(dm).sum())} against a world box; starts on the feature in '
+               f'{time.perf_counter() - t0:.2f} s: base x in [{start[:, 0].min().item():.3f}, '
+               f'{start[:, 0].max().item():.3f}], z in [{start[:, 2].min().item():.3f}, '
+               f'{start[:, 2].max().item():.3f}]')
+    incl = dm.const('con_incl', lambda: lay.con_incl)
+    mu = dm.const('con_mu_sliding', lambda: lay.con_mu[:, 0])
+    counts, last = [], {}
+
+    def on_step(fwd):
+        touching = (fwd.contacts.dist < incl) & world_box_slots(dm)
+        counts.append(torch.stack([touching.sum(), touching.any(1).sum()]))   # no sync
+        last['touching'] = touching
+
+    run = main_path(dm, phase, steps, (0,), SCENE_CPU_ENVS, start=start, on_step=on_step)
+    slots, envs = torch.stack(counts).T
+    frictions = torch.unique(mu[last['touching'].any(0)]).tolist()
+    log(phase, f'go2/{scene}: active slots against the world boxes per step '
+               f'{slots.min().item()}-{slots.max().item()} ({slots[-1].item() / BATCH:.3f} per '
+               f'env at the last step); envs touching a world box {envs[0].item()} of '
+               f'{BATCH} at step 0, {envs.min().item()}-{envs.max().item()} over the steps; '
+               f'their pair friction (sliding) '
+               f'{[round(x, 4) for x in frictions]}')
+    if int(envs[0]) != BATCH or int(envs.min()) < SCENE_TOUCH_SHARE * BATCH:
+        raise AssertionError(f'go2/{scene}: {envs[0].item()} of {BATCH} envs touch a world box '
+                             f'at step 0 (all must), at least {envs.min().item()} at a step '
+                             f'(at least {SCENE_TOUCH_SHARE:.0%} must)')
+    parts.append(('main path', time.perf_counter()))
+    card_against_cpu(dm, run, phase, ROBOT_CPU_CAP)
+    parts.append(('card against CPU', time.perf_counter()))
+    newton = newton_timing(run['last'], phase, scene in ROUNDING_SCENES)
+    parts.append(('Newton timing', time.perf_counter()))
+    narrow_phase_groups(dm, run, phase)
+    parts.append(('narrow phase by group', time.perf_counter()))
+    log(phase, 'seconds of the phase: ' + ', '.join(
+        f'{name} {t - (parts[i - 1][1] if i else t0):.1f}' for i, (name, t) in enumerate(parts)))
+    return run['launches'], newton
+
+
+def parallel_world1(phase=78, steps=PARALLEL_STEPS, K=None):
+    """Phase 78: `parallel/` in one process on nccl (world size 1, a free
+    localhost port): the mesh, `all_hosts_sum`; a `shard_env` rollout of
+    go2/flat at B=4096 over `steps` env steps against the same steps of the
+    unsharded env, bit for bit; `MPPI.solve_sharded` against `solve` from
+    a generator of the same seed at phase 50's defaults (K=1024, H=24, a
+    Newton cap of 4), bit for bit, with the seconds of each. One card
+    cannot show scaling."""
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    pdist.initialize(f'localhost:{port}', 1, 0)
+    try:
+        mesh = pdist.global_mesh()
+        total = pdist.all_hosts_sum(2.5)
+        log(phase, f'torch.distributed {torch.distributed.get_backend()} world size '
+                   f'{pdist.world_size()}: mesh {mesh.shape} on {mesh.device}, all_hosts_sum(2.5) '
+                   f'= {total}; one card: no scaling can be measured here')
+        env = QuadrupedEnv('go2', ground_friction_coeff=(0.5, 1.5))
+        nu = env.model.m.nu
+        runs = []
+        for sharded in (False, True):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            reset, step = shard_env(env, mesh) if sharded else (env.reset, None)
+            state, _ = reset(gen, BATCH)
+            plan = torch.rand(BATCH, steps, nu, generator=gen, device=DEVICE) * 4 - 2
+            spd.launches = nf.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            runs.append(rollout(env, steps, step)(state, plan))
+            sync()
+            runs[-1] += (time.perf_counter() - t0, (spd.launches, nf.launches))
+        same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            leaves_with_path(runs[0][:4]), leaves_with_path(runs[1][:4])))
+        log(phase, f'go2/flat B={BATCH}: {steps} env steps through rollout, unsharded '
+                   f'{runs[0][4]:.3f} s, through shard_env {runs[1][4]:.3f} s; launches '
+                   f'{runs[0][5]} and {runs[1][5]}; states, obs, rewards and terminations bit '
+                   f'for bit {same}; on {smi()}')
+        if not same or runs[1][5] != (2 * steps, steps):
+            raise AssertionError('the sharded rollout differs from the unsharded one')
+
+        dm = env.model
+        height = float(dm.m.key_qpos[0][2])
+        cfg = MPPIConfig() if K is None else MPPIConfig(n_samples=K)
+        mppi = MPPI(dm, velocity_tracking_cost(dm, (0.4, 0.0, 0.0), 0.0, height), cfg)
+        qpos = torch.as_tensor(dm.m.key_qpos[0], dtype=torch.float32, device=DEVICE)
+        qvel = torch.zeros(dm.m.nv, device=DEVICE)
+        u0 = torch.zeros(mppi.cfg.horizon, nu, device=DEVICE)
+        solves = []
+        for fn in (lambda: mppi.solve(torch.Generator(device=DEVICE).manual_seed(SEED), qpos,
+                                      qvel, u0),
+                   lambda: mppi.solve_sharded(mesh, SEED, qpos, qvel, u0)):
+            sync()
+            t0 = time.perf_counter()
+            u, info = fn()
+            sync()
+            solves.append((u, info, time.perf_counter() - t0))
+        same = (torch.equal(solves[0][0], solves[1][0])
+                and all(torch.equal(solves[0][1][k], solves[1][1][k]) for k in ('best_cost', 'ess')))
+        log(phase, f'MPPI K={mppi.cfg.n_samples} H={mppi.cfg.horizon} cap '
+                   f'{mppi.cfg.solver_iterations}: solve {solves[0][2]:.3f} s, solve_sharded '
+                   f'(all-reduces on {torch.distributed.get_backend()}) {solves[1][2]:.3f} s; '
+                   f'plan, best cost and ess bit for '
+                   f'bit {same} (ess {solves[1][1]["ess"].item():.2f}); on {smi()}')
+        if not same:
+            raise AssertionError('solve_sharded differs from solve at world size 1')
+    finally:
+        torch.distributed.destroy_process_group()
+    return runs[1][5]
+
+
+def gym_phases(spd_fields, newton_fields):
+    """Phases 74-78: the single-env gym adapter, go2 on ramp, slippery and
+    stairs, parallel/ at world size 1."""
+    out = gym_adapter()
+    spd_fields.update({'gym_b1_' + k: v for k, v in out['spd'].items()})
+    spd_fields['gym_launches_per_step'] = out['launches'][-1][0]
+    spd_fields['gym_refresh_launches'] = out['refresh'][0]
+    newton_fields.update({'gym_b1_' + k: v for k, v in out['newton'].items()})
+    newton_fields['gym_launches_per_step'] = out['launches'][-1][1]
+    newton_fields['gym_refresh_launches'] = out['refresh'][1]
+    for phase, scene in zip((75, 76, 77), GO2_SCENES):
+        launches, newton = go2_scene(scene, phase)
+        spd_fields[f'go2_{scene}_launches'] = launches['spd_solve']
+        newton_fields[f'go2_{scene}_launches'] = launches['newton_fused']
+        newton_fields.update({f'go2_{scene}_{k}': v for k, v in newton.items()})
+    spd_fields['parallel_launches'], newton_fields['parallel_launches'] = parallel_world1()
+
+
 def main():
     try:
         run()
@@ -3193,6 +3651,9 @@ def run():
                         help='run phases 1-2 and 51-67 alone (go1, mini_cheetah, hyqreal1)')
     parser.add_argument('--mixed', action='store_true',
                         help='run phases 1-2 and 68-73 alone (the mixed batch, BASELINE cfg5)')
+    parser.add_argument('--gym', action='store_true',
+                        help='run phases 1-2 and 74-78 alone (the gym adapter, go2 on ramp, '
+                             'slippery and stairs, parallel/)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -3227,7 +3688,7 @@ def run():
     spd_fields = {}
     newton_fields = {}
     rates = {}
-    if args.terrain or args.sensors or args.mpc or args.robots or args.mixed:
+    if args.terrain or args.sensors or args.mpc or args.robots or args.mixed or args.gym:
         if args.terrain:
             terrain_phases(spd_fields, newton_fields, rates)
         elif args.sensors:
@@ -3236,10 +3697,15 @@ def run():
             robot_phases(spd_fields, newton_fields, rates)
         elif args.mixed:
             mixed_phases(spd_fields, newton_fields)
+        elif args.gym:
+            gym_phases(spd_fields, newton_fields)
         else:
             mpc_phases(spd_fields, newton_fields)
         log('time', f'seconds per phase: {phase_seconds()}; '
                     f'{time.perf_counter() - T_START:.1f} s in all')
+        print(json.dumps({'launches and timings of these phases': {
+            'spd_solve': spd_fields, 'newton_fused': newton_fields}}))
+        print_ok()
         return
 
     # ---- 3. kernel against plain, on the card ----------------------------------------
@@ -3315,6 +3781,10 @@ def run():
     # resume; record and read back; a trace
     mixed_phases(spd_fields, newton_fields)
 
+    # ---- 74-78. the single-env gym adapter at B=1; go2 on ramp, slippery and
+    # stairs; parallel/ at world size 1 on nccl
+    gym_phases(spd_fields, newton_fields)
+
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')
     print(json.dumps({'kernels': [{
@@ -3329,6 +3799,10 @@ def run():
         'replaces': 'scripts/experimental/newton_solve.py:144, '
                     'scripts/experimental/newton_bt.py:272',
         'library_ms': None, **newton_fields}]}))
+    print_ok()
+
+
+def print_ok():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ terrain (the perlin scenes' heightfield, `terrain.perlin`).
 
 Entry points: `env.QuadrupedEnv(robot, scene, ...)`, whose `reset(generator,
 B)` and `step(state, action)` run B envs, `env.MixedQuadrupedEnv` (several
-robots in one batch), and below them
+robots in one batch), `env.gym_adapter.QuadrupedGymEnv` (one env behind
+the reference's gym surface, numpy in and out), `parallel/` (the batch
+and MPPI's samples split over torch.distributed ranks), and below them
 `physics.engine.step_batched(model, qpos, qvel, ctrl)` on a model from
 `models.model.load_model(robot, scene, device=...)`. Every tensor carries a
 leading env-batch axis. Two hand-written CUDA kernels run on the card, each

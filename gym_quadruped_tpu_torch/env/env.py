@@ -38,19 +38,10 @@ from gym_quadruped_tpu_torch.physics.collision import collide
 from gym_quadruped_tpu_torch.physics.constraints import constraint_layout, runtime_con_mu
 from gym_quadruped_tpu_torch.physics.forces import feet_slot_mask, invalid_contact
 from gym_quadruped_tpu_torch.physics.kinematics import fk
-from gym_quadruped_tpu_torch.utils.maths import euler_xyz_to_quat
+from gym_quadruped_tpu_torch.utils.maths import euler_xyz_to_quat, process_range
 
 # the reference's cap on the rounds of the lift out of contact at reset
 LIFT_ROUNDS = 100
-
-
-def _process_range(v) -> tuple:
-    """Scalar -> (v, v); (min, max) passes through (reference
-    math_utils.py:54)."""
-    if isinstance(v, (int, float, np.number)):
-        return (float(v), float(v))
-    assert len(v) == 2, f'Invalid range, expected (min, max): {v}'
-    return (float(v[0]), float(v[1]))
 
 
 class QuadrupedEnv:
@@ -83,10 +74,10 @@ class QuadrupedEnv:
         self.scene_name = scene
         self.base_vel_command_type = base_vel_command_type
         self.base_lin_vel_range = ref_base_lin_vel if callable(ref_base_lin_vel) \
-            else _process_range(ref_base_lin_vel)
+            else process_range(ref_base_lin_vel)
         self.base_ang_vel_range = ref_base_ang_vel if callable(ref_base_ang_vel) \
-            else _process_range(ref_base_ang_vel)
-        self.ground_friction_coeff_range = _process_range(ground_friction_coeff)
+            else process_range(ref_base_ang_vel)
+        self.ground_friction_coeff_range = process_range(ground_friction_coeff)
         assert tuple(legs_order) == ('FL', 'FR', 'RL', 'RR'), \
             'leg arrays are fixed FL,FR,RL,RR order'
         self.legs_order = tuple(legs_order)

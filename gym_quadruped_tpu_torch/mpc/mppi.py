@@ -7,6 +7,8 @@ sees contacts, joint limits and actuator saturation exactly. The K rollouts
 are the batch of one `engine.step_batched` call per horizon step, at the
 config's Newton cap and without a warm start (the reference's `engine.step`
 inside `lax.scan`), so each horizon step launches the port's kernels once.
+`solve_sharded` splits the K samples over the ranks of torch.distributed
+(`parallel/`) and reduces with all-reduces.
 
     u*_t = sum_k w_k (u_t + eps_k,t),   w_k ~ exp(-cost_k / lambda)
 """
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as tdist
 
 from gym_quadruped_tpu_torch.models.model import DeviceModel
 from gym_quadruped_tpu_torch.physics import engine
@@ -51,6 +54,19 @@ def velocity_tracking_cost(m: DeviceModel, ref_lin_vel_w, ref_yaw_dot, height,
                 + w_ctrl * (ctrl * ctrl).sum(-1))
 
     return cost
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s noise in a sharded solve seeded `seed`:
+    `seed` itself on rank 0, the ranks apart by a golden-ratio stride."""
+    return (int(seed) + int(rank) * 0x9E3779B97F4A7C15) % 2**63
+
+
+def _all_reduce(x, op):
+    """x reduced over every rank (a new tensor)."""
+    x = x.clone()
+    tdist.all_reduce(x, op)
+    return x
 
 
 class MPPI:
@@ -91,13 +107,28 @@ class MPPI:
         u_new = u_nominal + torch.einsum('k,khu->hu', w, eps)
         return u_new, {'best_cost': beta, 'ess': 1.0 / (w * w).sum()}
 
-    def solve_sharded(self, *args, **kwargs):
-        """The reference's multi-chip solve (scenarios sharded over a mesh,
-        reduced with psum) waits for the port of `parallel/` on
-        torch.distributed (ROADMAP Queue 1, item 6)."""
-        raise NotImplementedError(
-            'MPPI.solve_sharded needs the port of parallel/ on torch.distributed '
-            '(ROADMAP Queue 1, item 6: parallel/)')
+    def solve_sharded(self, mesh, seed: int, qpos, qvel, u_nominal):
+        """The solve with the K samples split over the mesh's ranks (the
+        reference's shard_map solve): each rank rolls out K / world samples
+        drawn from a generator on its device seeded by `rank_seed(seed,
+        rank)` (the reference folds the axis index into its key), then the
+        best cost is an all-reduce MIN and the weights' normaliser, the
+        plan update and the sum of squared weights are all-reduce SUMs.
+        Every rank returns the same (u_new (H, nu), info). At world size 1
+        this is `solve` with `torch.Generator(device).manual_seed(seed)`."""
+        cfg = self.cfg
+        if cfg.n_samples % mesh.size:
+            raise ValueError(f'{cfg.n_samples} samples do not split over {mesh.size} ranks')
+        gen = torch.Generator(device=qpos.device).manual_seed(rank_seed(seed, mesh.rank))
+        eps = cfg.sigma * torch.randn((cfg.n_samples // mesh.size, cfg.horizon, self.model.m.nu),
+                                      generator=gen, dtype=qpos.dtype, device=qpos.device)
+        costs = self._rollout_cost(qpos, qvel, u_nominal[None] + eps)
+        reduce = _all_reduce if tdist.is_initialized() else (lambda x, op: x)
+        beta = reduce(costs.amin(), tdist.ReduceOp.MIN)
+        w = torch.exp(-(costs - beta) / cfg.temperature)
+        w = w / reduce(w.sum(), tdist.ReduceOp.SUM)
+        u_new = u_nominal + reduce(torch.einsum('k,khu->hu', w, eps), tdist.ReduceOp.SUM)
+        return u_new, {'best_cost': beta, 'ess': 1.0 / reduce((w * w).sum(), tdist.ReduceOp.SUM)}
 
     @staticmethod
     def shift(u, fill=None):

@@ -154,6 +154,61 @@ def cdof(dm: DeviceModel, kin: Kin) -> torch.Tensor:
     return out
 
 
+def point_jacobian(dm: DeviceModel, kin: Kin, cdof: torch.Tensor, point: torch.Tensor,
+                   body_id: int) -> torch.Tensor:
+    """(B, 3, nv) translational Jacobian of the world point `point` (B, 3)
+    attached to the static body `body_id` (mj_jac): column i is the point's
+    velocity under a unit velocity of dof i, zero off the body's chain."""
+    rel = point - spatial_origin(kin)                               # (B, 3)
+    omega = cdof[..., :3]
+    vp = cdof[..., 3:] + torch.linalg.cross(omega, rel[:, None, :].expand_as(omega))
+    mask = dm.const(('ancestor_dofs', int(body_id)), lambda: ancestor_dof_mask(dm.m, body_id))
+    return (vp * mask[:, None]).transpose(1, 2)
+
+
+def _free_translation_mask(m: Model) -> np.ndarray:
+    """(nv,) 0 on the free joints' translation dofs, 1 elsewhere."""
+    mask = np.ones(m.nv)
+    for j in np.flatnonzero(m.jnt_type == FREE):
+        adr = int(m.jnt_dofadr[j])
+        mask[adr:adr + 3] = 0.0
+    return mask
+
+
+def cdof_dot(dm: DeviceModel, kin: Kin, qvel: torch.Tensor, cdof: torch.Tensor) -> torch.Tensor:
+    """(B, nv, 6) time derivative of the motion subspace vectors
+    (mjData.cdof_dot): v_body x_m S for the axes that move with their body;
+    a free joint's translation axes are fixed in the world, so theirs is 0."""
+    from gym_quadruped_tpu_torch.physics.dynamics import body_velocities
+
+    bid = dm.const('dof_bodyid', lambda: dm.m.dof_bodyid)
+    vel = body_velocities(dm, kin, qvel, cdof)[:, bid]              # (B, nv, 6)
+    w, v = vel[..., :3], vel[..., 3:]
+    sw, sv = cdof[..., :3], cdof[..., 3:]
+    dot = torch.cat([torch.linalg.cross(w, sw),
+                     torch.linalg.cross(w, sv) + torch.linalg.cross(v, sw)], -1)
+    return dot * dm.const('free_translation_mask', lambda: _free_translation_mask(dm.m))[:, None]
+
+
+def point_jacobian_dot(dm: DeviceModel, kin: Kin, cdof: torch.Tensor, qvel: torch.Tensor,
+                       point: torch.Tensor, body_id: int) -> torch.Tensor:
+    """(B, 3, nv) time derivative of `point_jacobian` (mj_jacDot):
+    d/dt[v0_i + w_i x (p - c)] = v0dot_i + wdot_i x (p - c) + w_i x v(p),
+    (wdot_i; v0dot_i) from `cdof_dot` and v(p) the material velocity of the
+    point; the spatial origin c is held fixed, MuJoCo's c-frame convention."""
+    from gym_quadruped_tpu_torch.physics.dynamics import body_velocities
+
+    rel = point - spatial_origin(kin)                               # (B, 3)
+    dot = cdof_dot(dm, kin, qvel, cdof)
+    vel_b = body_velocities(dm, kin, qvel, cdof)[:, body_id]        # (B, 6)
+    v_p = vel_b[:, 3:] + torch.linalg.cross(vel_b[:, :3], rel)
+    omega = cdof[..., :3]
+    jdot = (dot[..., 3:] + torch.linalg.cross(dot[..., :3], rel[:, None, :].expand_as(omega))
+            + torch.linalg.cross(omega, v_p[:, None, :].expand_as(omega)))
+    mask = dm.const(('ancestor_dofs', int(body_id)), lambda: ancestor_dof_mask(dm.m, body_id))
+    return (jdot * mask[:, None]).transpose(1, 2)
+
+
 def ancestor_dof_mask(m: Model, body_id: int) -> np.ndarray:
     """Static 0/1 mask (nv,) of the dofs on the chain from the world to body."""
     mask = np.zeros(m.nv, np.float64)

@@ -15,8 +15,10 @@ and constructor):
     rendered and the gate picks per env, as the reference's vmapped
     `lax.cond` does: envs reset apart keep their own clocks.
 
-RGB goes through a host MuJoCo renderer in the reference (`image`, `save`);
-that host render is not ported, and both raise NotImplementedError.
+RGB goes through a host MuJoCo renderer of the MJCF assets in the
+reference (`image`, `save(rgb=True)`); that host render is not ported, and
+both raise NotImplementedError. `save` writes the depth, seg and point
+cloud files.
 
 MuJoCo's camera convention: it looks along -z, +y up in the image.
 """
@@ -143,9 +145,32 @@ class Camera(Sensor):
             'which is not ported: use depth_image, seg_image or point_cloud')
 
     def save(self, out_dir, qpos, rgb: bool = False):
-        raise NotImplementedError(
-            'Camera.save writes through the host MuJoCo render of the reference, which is '
-            'not ported: save render() outputs instead')
+        """Write the depth (.npy and .png), seg (.npy) and point cloud (.npy)
+        of one env at qpos (nq,) into a timestamped directory under
+        `out_dir` (reference rgbd_camera.py:173-191), and return it. The
+        depth image is scaled to [0, 255], near bright. `rgb=True` raises:
+        RGB is a host MuJoCo render of the reference's MJCF assets."""
+        import time as _time
+        from pathlib import Path
+
+        if rgb:
+            raise NotImplementedError(
+                'Camera.save(rgb=True) needs the RGB image, a host MuJoCo render of the '
+                "reference's MJCF assets (models/builder.py::build_display_mj_model), which "
+                'are not in the repository: save with rgb=False')
+        from PIL import Image
+
+        q = torch.as_tensor(qpos, dtype=self.model.dtype, device=self.model.device)
+        depth_e, _, seg, pc = (x[0].cpu().numpy() for x in self.shoot(q.reshape(1, -1)))
+        out = Path(out_dir) / _time.strftime('%Y%m%d_%H%M%S')
+        out.mkdir(parents=True, exist_ok=True)
+        np.save(out / 'depth.npy', depth_e)
+        np.save(out / 'seg.npy', seg)
+        np.save(out / 'points.npy', pc)
+        lo, hi = float(depth_e.min()), float(depth_e.max())
+        norm = (depth_e - lo) / (hi - lo) if hi > lo else depth_e * 0
+        Image.fromarray((255 * (1 - norm)).astype(np.uint8)).save(out / 'depth.png')
+        return out
 
     # ------------------------------------------------------ sensor protocol
 

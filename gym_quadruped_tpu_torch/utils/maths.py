@@ -7,6 +7,8 @@ Counterpart: gym_quadruped_tpu/utils/maths.py.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
@@ -101,3 +103,63 @@ def euler_xyz_to_quat(e: torch.Tensor) -> torch.Tensor:
                         sr * cp * cy - cr * sp * sy,
                         cr * sp * cy + sr * cp * sy,
                         cr * cp * sy - sr * sp * cy], -1)
+
+
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """(4,) the identity rotation (1, 0, 0, 0)."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) the conjugate (w, -x, -y, -z): the inverse rotation."""
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R(q)^T @ v over (..., 4) and (..., 3)."""
+    return quat_rotate(quat_conj(q), v)
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) wxyz, branch-free Shepperd's method: of the
+    four candidate solutions the one whose dominant component is largest,
+    with w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    cand = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    sel = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], -1)], -2)
+    idx = cand.argmax(-1, keepdim=True)                         # (..., 1)
+    q = torch.take_along_dim(sel, idx[..., None], -2)[..., 0, :]
+    q = q * (0.5 / torch.sqrt(torch.clamp_min(torch.take_along_dim(cand, idx, -1), 1e-30)))
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
+
+
+def angle_between_vectors(v1, v2) -> torch.Tensor:
+    """(...,) the heading in the xy plane of the segment from v1 to v2
+    (atan2 of the difference v2 - v1, as the reference's math_utils)."""
+    d = torch.as_tensor(v2) - torch.as_tensor(v1)
+    return torch.atan2(d[..., 1], d[..., 0])
+
+
+def homogenous_transform(p: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Points (..., 3) through the (..., 4, 4) homogeneous transforms X."""
+    return (X[..., :3, :3] @ p[..., None])[..., 0] + X[..., :3, 3]
+
+
+def process_range(values) -> tuple:
+    """A scalar v -> (v, v); a (min, max) pair passes through, both as
+    floats. Host-side helper for constructor arguments."""
+    if isinstance(values, numbers.Number):
+        return (float(values), float(values))
+    values = tuple(values)
+    if len(values) != 2:
+        raise ValueError(f'Invalid range, expected (min, max), got: {values}')
+    return (float(values[0]), float(values[1]))

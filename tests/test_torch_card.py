@@ -4,8 +4,10 @@ against the same steps in f64 on the CPU (go2/perlin's from the keyframe
 lifted out of the terrain and lowered onto it), and the env layer on the card
 (go2/flat reset and steps, launches per step, card against CPU f64), a
 small mixed-robot batch (launches per step, each group equal to its
-homogeneous env) and a checkpoint resumed on the card. Every test here
-needs an NVIDIA GPU and skips without one.
+homogeneous env), a checkpoint resumed on the card, the single-env gym
+adapter (launches per step and per Forward refresh, accessors against the
+CPU's f64) and go2/slippery against the CPU's f64 with the feet on its
+world boxes. Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -21,6 +23,7 @@ import torch
 
 from gym_quadruped_tpu_torch.env import MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.models.model import load_model
+from gym_quadruped_tpu_torch.models.scene_starts import feature_start, world_box_slots
 from gym_quadruped_tpu_torch.ops import newton_fused as nf
 from gym_quadruped_tpu_torch.ops import spd_solve as spd
 from gym_quadruped_tpu_torch.physics import constraints as pcon
@@ -418,3 +421,65 @@ def test_checkpoint_resume_on_card(card, tmp_path):
     restored = checkpoint.restore(tmp_path / 'go2.npz', want, fresh)
     _assert_same(restored, state)
     _assert_same(run(restored, fresh, 5), want)
+
+
+@pytest.mark.cuda
+def test_gym_adapter_on_card(card):
+    # the single-env adapter on the card: each step launches the step's
+    # kernels alone, a Forward refresh one of each; its accessors match the
+    # same adapter's on the CPU in f64 at the same state
+    from gym_quadruped_tpu_torch.env.gym_adapter import QuadrupedGymEnv
+    env = QuadrupedGymEnv(robot='go2', solver_iterations=30)
+    assert env.core.model.device.type == 'cuda'
+    cpu = QuadrupedGymEnv(robot='go2', solver_iterations=30,
+                          model=load_model('go2', 'flat', device='cpu', dtype=torch.float64))
+    obs = env.reset(seed=0)
+    assert all(isinstance(v, np.ndarray) and np.isfinite(v).all() for v in obs.values())
+    rng = np.random.RandomState(0)
+    spd.launches = nf.launches = 0
+    for _ in range(5):
+        obs, reward, term, trunc, info = env.step(rng.uniform(-2, 2, 12))
+    assert (spd.launches, nf.launches) == (10, 5)
+    assert isinstance(reward, float) and isinstance(term, bool)
+    state = env._state
+    state.qpos[:, :2] = 0.0       # at the origin, where f32 resolves positions finely
+    cpu._state = state.to('cpu', torch.float64)
+    env._fwd = None
+    spd.launches = nf.launches = 0
+    jac = env.feet_jacobians('base')
+    assert (spd.launches, nf.launches) == (1, 1)
+    want = cpu.feet_jacobians('base')
+    for leg in ('FL', 'FR', 'RL', 'RR'):
+        assert np.abs(jac[leg] - want[leg]).max() < 1e-5
+    assert np.abs(env.feet_jacobians_dot()['FL'] - cpu.feet_jacobians_dot()['FL']).max() < 1e-4
+    assert np.abs(env.com - cpu.com).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_slippery_on_card_matches_cpu_f64(card):
+    # go2/slippery at full width: 32 envs on each of the two surfaces
+    # (`feature_start`), 20 steps on the card in f32 and on the CPU in f64
+    # at the Newton cap of 30; the feet stand on the world boxes throughout
+    dm = load_model('go2', 'slippery', device=card)
+    dm64 = load_model('go2', 'slippery', device='cpu', dtype=torch.float64)
+    lay = constraint_layout(dm.m)
+    world_box = world_box_slots(dm)
+    qpos = feature_start(dm, 64, torch.Generator(device=card).manual_seed(0))
+    qvel = torch.zeros(64, dm.m.nv, device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    ctrls = torch.rand(20, 64, 12, generator=gen, device=card) * 4 - 2
+    q, v, w = qpos, qvel, torch.zeros_like(qvel)
+    q64, v64, w64 = (x.double().cpu() for x in (qpos, qvel, w))
+    spd.launches = nf.launches = 0
+    for c in ctrls:
+        q, v, f = engine.step_batched(dm, q, v, c, warmstart=w, solver_iterations=30)
+        w = f.qacc
+        touching = ((f.contacts.dist < torch.as_tensor(lay.con_incl, device=card))
+                    & world_box).sum(1)
+        assert bool((touching > 0).all())
+        q64, v64, f64 = engine.step_batched(dm64, q64, v64, c.double().cpu(), warmstart=w64,
+                                            solver_iterations=30)
+        w64 = f64.qacc
+    assert (spd.launches, nf.launches) == (40, 20)
+    err = (q.double().cpu() - q64).abs().max().item()
+    assert err < 1e-3, err

@@ -306,9 +306,9 @@ def test_reset_cadence():
 
 
 def test_sensors_not_ported():
-    """What still raises with sensors: the camera's RGB `image` and `save`
-    (a host MuJoCo render in the reference), and an observable that neither
-    the env nor a sensor knows."""
+    """What still raises with sensors: the camera's RGB `image` and
+    `save(rgb=True)` (a host MuJoCo render in the reference), and an
+    observable that neither the env nor a sensor knows."""
     from gym_quadruped_tpu_torch.models.model import load_model
     from gym_quadruped_tpu_torch.sensors import Camera, HeightMap
     dm = load_model('aliengo', 'flat', device='cpu', dtype=torch.float64)
@@ -318,7 +318,7 @@ def test_sensors_not_ported():
     with pytest.raises(NotImplementedError, match='host MuJoCo render'):
         cam.image(qpos)
     with pytest.raises(NotImplementedError, match='host MuJoCo render'):
-        cam.save('unused', qpos)
+        cam.save('unused', qpos[0], rgb=True)
     with pytest.raises(ValueError, match='height_map_x'):
         QuadrupedEnv('aliengo', model=dm, sensors=[HeightMap],
                      state_obs_names=('qpos', 'height_map_z', 'height_map_x'))

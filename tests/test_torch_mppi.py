@@ -9,7 +9,9 @@ at ~1e-8-1e-5: test_torch_env_physics.py).
   `jax.vmap(MPPI._rollout_cost)`: 1e-8 relative.
 * `_update` on the same noise and costs: the plan to 1e-12, best cost and
   effective sample size to 1e-12.
-* `shift` is exact; `solve_sharded` raises (it waits for parallel/).
+* `shift` is exact; `solve_sharded` in a single process (no process
+  group, a mesh of one rank) is `solve` with a generator of the same seed,
+  bit for bit (tests/test_torch_parallel.py holds it over 2 ranks).
 * A solve from a generator improves on the nominal plan (within 5%), as
   tests/test_mppi.py holds the reference.
 """
@@ -26,6 +28,7 @@ from gym_quadruped_tpu.mpc import MPPIConfig as JConfig
 from gym_quadruped_tpu.mpc import velocity_tracking_cost as jcost
 from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.mpc import MPPI, MPPIConfig, velocity_tracking_cost
+from gym_quadruped_tpu_torch.parallel import make_mesh
 
 K, H = 8, 3
 CONFIG = dict(horizon=H, n_samples=K, sigma=1.0, solver_iterations=30)
@@ -85,9 +88,12 @@ def test_shift_and_sharded(spot):
         got = MPPI.shift(torch.as_tensor(u), None if f is None else torch.as_tensor(f))
         want = JMPPI.shift(jnp.asarray(u), None if f is None else jnp.asarray(f))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match='parallel/'):
-        port.solve_sharded(None, torch.Generator(), torch.as_tensor(qpos), torch.as_tensor(qvel),
-                           torch.zeros(H, 12, dtype=torch.float64))
+    qp, qv, u0 = torch.as_tensor(qpos), torch.as_tensor(qvel), torch.zeros(H, 12, dtype=torch.float64)
+    got, got_info = port.solve_sharded(make_mesh(), 7, qp, qv, u0)
+    want, want_info = port.solve(torch.Generator().manual_seed(7), qp, qv, u0)
+    assert torch.equal(got, want)
+    for key in ('best_cost', 'ess'):
+        assert torch.equal(got_info[key], want_info[key]), key
 
 
 def test_solve_improves_cost(spot):
