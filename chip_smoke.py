@@ -9,15 +9,16 @@
     python3 chip_smoke.py --robots             # phases 1-2 and 51-67 alone
     python3 chip_smoke.py --mixed              # phases 1-2 and 68-73 alone
     python3 chip_smoke.py --gym                # phases 1-2 and 74-78 alone
+    python3 chip_smoke.py --tree               # phases 1-2 and 79 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
      TF32 off for matmuls and cuDNN;
   2. build the kernels with nvcc for sm_90a, one nvcc for each source and
      size, all in parallel: csrc/spd_solve.cu for n = 18, 7 and 32 (the sizes
-     of phase 3) and csrc/newton_fused.cu for nv = 18 (print seconds and
-     ptxas), and each kernel's residency per SM at the main path's sizes from
-     the CUDA occupancy query;
+     of phase 3) and 21 (the joint tree's, phase 79) and csrc/newton_fused.cu
+     for nv = 18 and 21 (print seconds and ptxas), and each kernel's
+     residency per SM at the main path's sizes from the CUDA occupancy query;
   3. the SPD kernel against its plain version and a float64 solve on seeded
      SPD systems at (4096, 18), (4097, 18), (100, 7) and (64, 32);
   4. SPD timings at (4096, 18) with CUDA events: the kernel (launched
@@ -264,6 +265,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      `shard_env` rollout of go2/flat at B=4096 over 5 steps against the
      unsharded one and `MPPI.solve_sharded` against `solve` (K=1024, H=24,
      cap 4), both bit for bit; one card cannot show scaling.
+ 79. the general joint tree (models/fixtures/jointtree-flat.npz, read with
+     the port's Model.load: a free base, a ball-jointed tail, per leg two
+     hinges on one body and a sprung, limited slide joint; nq 23, nv 21):
+     B=4096 in f32 from the keyframe raised 0.1 m with seeded joint offsets,
+     100 steps of seeded U(-2, 2) torques (steps/s, peak memory, 2 SPD and
+     1 Newton launch per step, every env finite; the feet and the tail
+     land), after phase 5's checks of the Newton kernel at nv = 21 on the
+     tree's soft states at a cap of 30; both kernels at nv = 21 against
+     their plain versions on the last step's inputs (times, bounds,
+     torch.linalg.solve's time at (4096, 21), residency); card against CPU
+     f64 on 8 envs over steps
+     60-80 (across the landing) at a Newton cap of 30, the reading and its
+     ratio to the bar of 1e-3.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -272,8 +286,9 @@ and power limit. Then come the seconds each phase took, the kernels' JSON
 record on the line before the last (go2/perlin's fields prefixed
 `go2_perlin_`, the new robots' `go1_`, `mini_cheetah_`, `hyqreal1_` and
 `<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`, the adapter's `gym_`
-and `gym_b1_`, the scenes' `go2_<scene>_`, phase 78's `parallel_`), and
-{"ok": true, "device": {...}} last. A run of some phases alone (a flag)
+and `gym_b1_`, the scenes' `go2_<scene>_`, phase 78's `parallel_`, the
+joint tree's `tree_`; `sizes_built` lists the sizes each kernel was built
+for), and {"ok": true, "device": {...}} last. A run of some phases alone (a flag)
 prints their fields on a line of its own, then the same last line.
 """
 
@@ -304,7 +319,14 @@ from gym_quadruped_tpu_torch.env import ALL_OBS, MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
 from gym_quadruped_tpu_torch.env.state import tensor_fields
-from gym_quadruped_tpu_torch.models.model import GEOM_BOX, GEOM_HFIELD, load_model
+from gym_quadruped_tpu_torch.models.model import (
+    GEOM_BOX,
+    GEOM_HFIELD,
+    JOINT_TREE,
+    Model,
+    load_model,
+    to_device,
+)
 from gym_quadruped_tpu_torch.models.scene_starts import feature_start, world_box_slots
 from gym_quadruped_tpu_torch.mpc import (
     MPPI,
@@ -402,6 +424,11 @@ def newton_sizes(m):
     K = engine.MAX_CONE_CONTACTS
     return m.nv, lay.n_fl + lay.n_lim + contact_rows(lay, K), min(len(lay.cone_slots), K)
 
+
+# the sizes phase 2 builds each kernel for: spot's and every compiled robot's
+# nv of 18, phase 3's 7 and 32, the joint tree's 21 (phase 79)
+SPD_SIZES = (18, 7, 32, 21)
+NEWTON_SIZES = (18, 21)
 
 T_START = time.perf_counter()
 LOGGED = {}   # phase: the time of its last line
@@ -1007,8 +1034,8 @@ def card_continued(dm, start, t0, n):
     return ctrls, acts, q
 
 
-def card_against_cpu(dm, run, phase, cap=None):
-    """Phases 7, 12, 17, 22, 27 and 37: the run's first envs stepped
+def card_against_cpu(dm, run, phase, cap=None, dm64=None):
+    """Phases 7, 12, 17, 22, 27, 37 and 79: the run's first envs stepped
     CPU_STEPS times in f64 on the CPU through the same functions, from the
     card's states at each start of the run's windows; every env's qpos after
     the steps within 1e-3 of the card's f32 state. A window that ends past
@@ -1020,10 +1047,14 @@ def card_against_cpu(dm, run, phase, cap=None):
     path's own state at the cap of 10 is printed beside it.
     The line also counts the envs whose set of active simple rows and cone
     slots differed from the card's at some step (a row at its activation
-    threshold to rounding), which would explain a failure."""
+    threshold to rounding), which would explain a failure. `dm64` is the
+    CPU's f64 model (by default the compiled archive of dm's robot and
+    scene). Returns each window's max |qpos diff|."""
     torch.set_num_threads(1)   # tiny batched products: one thread is fastest
     m = dm.m
-    dm64 = load_model(m.robot, m.scene, device='cpu', dtype=torch.float64)
+    if dm64 is None:
+        dm64 = load_model(m.robot, m.scene, device='cpu', dtype=torch.float64)
+    errs = []
     C_all = len(constraint_layout(dm64.m).cone_slots)
     ctrls, states, acts, n = run['ctrls'], run['states'], run['acts'], run['n_cpu']
     for t0 in run['windows']:
@@ -1051,6 +1082,7 @@ def card_against_cpu(dm, run, phase, cap=None):
             w = f.qacc
             switched |= (activation(f.efc, C_all) != act.cpu()).any(1)
         err = (end.double().cpu() - q).abs().max().item()
+        errs.append(err)
         beside = '' if cap is None else (
             f' (both at a Newton cap of {cap}; the main path at the cap of 10 against it '
             f'{(at_cap10.double().cpu() - q).abs().max().item():.3e})')
@@ -1063,6 +1095,7 @@ def card_against_cpu(dm, run, phase, cap=None):
         if not err < 1e-3:
             raise AssertionError(f'{m.robot}/{m.scene}: card and CPU trajectories differ by '
                                  f'{err}')
+    return errs
 
 
 def newton_timing(last, phase, rounding=False, cap=10):
@@ -3627,6 +3660,109 @@ def gym_phases(spd_fields, newton_fields):
     spd_fields['parallel_launches'], newton_fields['parallel_launches'] = parallel_world1()
 
 
+# ---- phase 79: the general joint tree ----------------------------------------------------
+
+# the joint tree's steps on the card (its feet land after ~70: the drop of
+# 0.1 m takes ~0.14 s), its drop, and the window the CPU's f64 steps
+# (20 steps across the landing)
+TREE_STEPS = 100
+TREE_DROP = 0.1
+TREE_WINDOW = 60
+TREE_CPU_ENVS = 8
+# the card's f32 against the CPU's f64 over the window: BASELINE's bar in qpos
+TREE_QPOS_BAR = 1e-3
+# The tree's soft states sit at the f32 stopping rule's edge, as hyqreal1's
+# do (ROUNDING_ROBOTS): at the cap of 30 the kernel and the eager f32 solve
+# part by 2.3e-05-3.1e-05 of 1 + max|qacc| in qacc and 1.9e-04-2.4e-04 in the
+# cone forces, in the fixed-count form too (both run the same 30 Newton
+# steps), and stop at another iteration in 3,333-3,400 of 4,096 envs; the
+# eager f32 solve sits as far from an eager f64 solve as the kernel does
+# (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md). The kernel is held to f64 as
+# the plain f32 solve is (`rounding_bars`).
+TREE_ROUNDING = True
+
+
+def joint_tree(phase=79, steps=TREE_STEPS):
+    """Phase 79: the joint tree (models/fixtures/jointtree-flat.npz, read
+    with the port's `Model.load`: a free base, a ball-jointed tail, per leg
+    two hinges on one body and a sprung slide joint; nq 23, nv 21) on the
+    card at B=4096 in f32: `main_path`'s `steps` steps of seeded U(-2, 2)
+    torques from the keyframe raised TREE_DROP with seeded joint offsets, so
+    that the feet and the tail land (steps/s, peak memory, 2 SPD and 1
+    Newton launches per step, every env finite); the last step's SPD kernel
+    (`spd_at`) and Newton kernel (`newton_timing`) at nv = 21 against their
+    plain versions on the inputs it gave them; the card against the CPU's
+    f64 over steps TREE_WINDOW..+20 at a Newton cap of 30 (the states start
+    at the origin), its reading and its ratio to TREE_QPOS_BAR. Before the
+    path, phase 5's checks of the Newton kernel at nv = 21 (`newton_agreement`
+    at go2's cap of 30) on the tree's soft states.
+    Returns (launches, SPD fields, Newton fields)."""
+    # go2's names and robot config; the lines name it go2/jointtree
+    m = dataclasses.replace(Model.load(JOINT_TREE), scene='jointtree')
+    dm = to_device(m, 'cuda', torch.float32)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    start = torch.as_tensor(m.key_qpos[0], dtype=torch.float32, device='cuda').repeat(BATCH, 1)
+    start[:, 2] += TREE_DROP
+    legs = torch.as_tensor(m.legs_qpos_idx.reshape(-1), device='cuda')
+    scale = torch.tensor([0.1, 0.1, 0.01], device='cuda').repeat(4)
+    start[:, legs] += (torch.rand(BATCH, 12, generator=gen, device='cuda') * 2 - 1) * scale
+    sizes = newton_sizes(m)
+    spd_blocks, spd_per_block = spd.occupancy(m.nv)
+    nf_blocks, nf_per_block, smem = nf.occupancy(*sizes)
+    log(phase, f'joint tree: nq {m.nq}, nv {m.nv}, joint types {m.jnt_type.tolist()} (free 0, '
+               f'ball 1, slide 2, hinge 3), at most {int(m.body_jntnum.max())} joints on a body; '
+               f'{len(m.contact_pairs)} contact pairs; Newton at (nv, ns, C) = {sizes}: '
+               f'{nf_blocks} blocks of {nf_per_block} envs per SM, {smem} B of shared memory '
+               f'per block; SPD at n = {m.nv}: {spd_blocks} blocks of {spd_per_block} systems '
+               f'per SM; dropped from {TREE_DROP} m above the keyframe')
+    # phase 5's checks at nv = 21 on the tree's soft states (its feet and tail
+    # pressed into the floor; a hip past its range in a quarter of the envs),
+    # at go2's cap of 30 (impratio 100 leaves impact states unconverged at
+    # 10), under `rounding_bars` (TREE_ROUNDING)
+    _, failures, _ = newton_agreement(dm, phase, GO2_AGREEMENT_ITERATIONS, GO2_ITERATION_ENVS_BAR,
+                                      rounding=TREE_ROUNDING)
+    if failures:
+        raise AssertionError('; '.join(failures))
+    parts = [('Newton agreement', time.perf_counter())]
+    run = main_path(dm, phase, steps, (TREE_WINDOW,), TREE_CPU_ENVS, start=start)
+    qpos, qvel, warm = run['state']
+    lay = constraint_layout(m)
+    kin = kinematics.fk(dm, qpos)
+    touching = collision.collide(dm, kin).dist < dm.const('con_incl', lambda: lay.con_incl)
+    landed = {m.geom_names[g]: int(touching[:, i].sum()) for i, g in enumerate(lay.con_geom2)}
+    log(phase, f'joint tree after {steps} steps: envs whose slot touches, by geom {landed}; '
+               f'base height {qpos[:, 2].min().item():.4f}-{qpos[:, 2].max().item():.4f} m')
+    parts.append(('main path', time.perf_counter()))
+
+    # the last step's kernels on the inputs it gave them, at nv = 21
+    _, spds, _ = kept_kernel_inputs(lambda: engine.step_batched(
+        dm, qpos, qvel, torch.zeros(BATCH, m.nu, device='cuda'), warmstart=warm))
+    spd_fields = spd_at(*spds[0], phase, 'joint tree, its smooth solve')
+    newton = newton_timing(run['last'], phase)
+    parts.append(('kernels', time.perf_counter()))
+
+    dm64 = to_device(m, 'cpu', torch.float64)
+    err, = card_against_cpu(dm, run, phase, ROBOT_CPU_CAP, dm64=dm64)
+    log(phase, f'joint tree, card f32 against CPU f64 over steps {TREE_WINDOW}..'
+               f'{TREE_WINDOW + CPU_STEPS} at a Newton cap of {ROBOT_CPU_CAP}: max |qpos diff| '
+               f'{err:.3e} = {err / TREE_QPOS_BAR:.4f} of the bar {TREE_QPOS_BAR}')
+    parts.append(('card against CPU', time.perf_counter()))
+    log(phase, 'seconds of the phase: ' + ', '.join(
+        f'{name} {t - (parts[i - 1][1] if i else t0):.1f}' for i, (name, t) in enumerate(parts)))
+    newton.update(steps_per_s=run['steps_per_s'], card_against_cpu_f64=err)
+    return run['launches'], spd_fields, newton
+
+
+def tree_phases(spd_fields, newton_fields):
+    """Phase 79: the general joint tree."""
+    launches, spd_out, newton = joint_tree()
+    spd_fields.update({'tree_' + k: v for k, v in spd_out.items()})
+    spd_fields['tree_launches'] = launches['spd_solve']
+    newton_fields.update({'tree_' + k: v for k, v in newton.items()})
+    newton_fields['tree_launches'] = launches['newton_fused']
+
+
 def main():
     try:
         run()
@@ -3654,6 +3790,8 @@ def run():
     parser.add_argument('--gym', action='store_true',
                         help='run phases 1-2 and 74-78 alone (the gym adapter, go2 on ramp, '
                              'slippery and stairs, parallel/)')
+    parser.add_argument('--tree', action='store_true',
+                        help='run phases 1-2 and 79 alone (the general joint tree)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -3667,7 +3805,8 @@ def run():
 
     # ---- 2. build, one nvcc per source and size, all in parallel -----------------------
     t_build = time.perf_counter()
-    builds = [(spd, n) for n in (m.nv, 7, 32)] + [(nf, m.nv)]
+    # the joint tree's nv = 21 (phase 79) beside spot's 18 and phase 3's sizes
+    builds = [(spd, n) for n in SPD_SIZES] + [(nf, nv) for nv in NEWTON_SIZES]
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(lambda b: b[0].build(b[1]), builds))
     log(2, f'{len(builds)} kernel builds in {time.perf_counter() - t_build:.2f} s')
@@ -3688,7 +3827,8 @@ def run():
     spd_fields = {}
     newton_fields = {}
     rates = {}
-    if args.terrain or args.sensors or args.mpc or args.robots or args.mixed or args.gym:
+    if args.terrain or args.sensors or args.mpc or args.robots or args.mixed or args.gym \
+            or args.tree:
         if args.terrain:
             terrain_phases(spd_fields, newton_fields, rates)
         elif args.sensors:
@@ -3699,6 +3839,8 @@ def run():
             mixed_phases(spd_fields, newton_fields)
         elif args.gym:
             gym_phases(spd_fields, newton_fields)
+        elif args.tree:
+            tree_phases(spd_fields, newton_fields)
         else:
             mpc_phases(spd_fields, newton_fields)
         log('time', f'seconds per phase: {phase_seconds()}; '
@@ -3785,6 +3927,10 @@ def run():
     # stairs; parallel/ at world size 1 on nccl
     gym_phases(spd_fields, newton_fields)
 
+    # ---- 79. the general joint tree: ball, slide and two joints on a body; both
+    # kernels at nv = 21
+    tree_phases(spd_fields, newton_fields)
+
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')
     print(json.dumps({'kernels': [{
@@ -3793,12 +3939,12 @@ def run():
         'replaces': 'gym_quadruped_tpu/ops/spd_solve.py:37',
         'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': library_ms,
-        **spd_fields}, {
+        'sizes_built': list(SPD_SIZES), **spd_fields}, {
         'name': 'newton_fused', 'route': 'cuda',
         'source': 'gym_quadruped_tpu_torch/csrc/newton_fused.cu',
         'replaces': 'scripts/experimental/newton_solve.py:144, '
                     'scripts/experimental/newton_bt.py:272',
-        'library_ms': None, **newton_fields}]}))
+        'library_ms': None, 'sizes_built': list(NEWTON_SIZES), **newton_fields}]}))
     print_ok()
 
 

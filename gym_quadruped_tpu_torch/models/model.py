@@ -11,6 +11,7 @@ types, pair lists) that the Python loops unroll over.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 from pathlib import Path
 
@@ -28,6 +29,9 @@ CONE_PYRAMIDAL, CONE_ELLIPTIC = 0, 1
 # The compiled archives ship inside the JAX package; they are data files, read
 # by path, so the port needs nothing else from that package.
 COMPILED_DIR = Path(__file__).resolve().parents[2] / 'gym_quadruped_tpu' / 'models' / 'compiled'
+# A test model of the port's own: every joint type on one tree, under go2's
+# names (scripts/torch_port/make_joint_tree.py writes it).
+JOINT_TREE = Path(__file__).resolve().parent / 'fixtures' / 'jointtree-flat.npz'
 
 _TUPLE_FIELDS = ('terrain_limits', 'body_names', 'jnt_names', 'geom_names',
                  'site_names', 'cam_names')
@@ -191,6 +195,19 @@ class Model:
     def base_body_id(self) -> int:
         """The floating-base body (child of world holding the free joint)."""
         return int(self.jnt_bodyid[np.where(self.jnt_type == FREE)[0][0]])
+
+    def save(self, path: str | Path):
+        """Write the archive in the JAX package's format (`Model.save` there):
+        every array field as an array, the other fields as JSON under
+        `__meta__`. `load` reads it back, and so does the JAX package."""
+        arrays, meta = {}, {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            (arrays if isinstance(v, np.ndarray) else meta)[f.name] = v
+        buf = io.BytesIO()
+        np.savez_compressed(buf, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+                            **arrays)
+        Path(path).write_bytes(buf.getvalue())
 
     @classmethod
     def load(cls, path: str | Path) -> 'Model':

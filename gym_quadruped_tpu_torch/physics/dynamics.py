@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from gym_quadruped_tpu_torch.models.model import FREE, DeviceModel, Model
+from gym_quadruped_tpu_torch.models.model import BALL, FREE, HINGE, SLIDE, DeviceModel, Model
 from gym_quadruped_tpu_torch.physics.kinematics import (
     Kin,
     spatial_origin,
@@ -57,6 +57,52 @@ def _body_dof_masks(m: Model):
             chain[b, a:a + n] = 1.0
             p = int(m.body_parentid[p])
     return chain, own_moving
+
+
+def _joint_pairs(m: Model):
+    """Each pair of joints (j, k), j before k, on one body: (P, nv) masks of
+    j's dofs whose axes move with the body and of all k's dofs, and (P,) the
+    body."""
+    ndof = {FREE: 6, BALL: 3, SLIDE: 1, HINGE: 1}
+    first, second, body = [], [], []
+    for b in range(1, m.nbody):
+        joints = range(int(m.body_jntadr[b]), int(m.body_jntadr[b]) + int(m.body_jntnum[b]))
+        for j in joints:
+            for k in joints:
+                if k <= j:
+                    continue
+                rows = np.zeros((2, m.nv))
+                for row, jk in zip(rows, (j, k)):
+                    a = int(m.jnt_dofadr[jk])
+                    row[a:a + ndof[int(m.jnt_type[jk])]] = 1.0
+                if int(m.jnt_type[j]) == FREE:
+                    rows[0, int(m.jnt_dofadr[j]):int(m.jnt_dofadr[j]) + 3] = 0.0
+                first.append(rows[0])
+                second.append(rows[1])
+                body.append(b)
+    return np.array(first), np.array(second), np.array(body, np.int64)
+
+
+def _velocity_product(dm: DeviceModel, vel: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
+    """(B, nbody, 6) each body's velocity-product acceleration (mj_comVel's
+    cdof_dot times qvel, summed down the chain) from the bodies' velocities
+    `vel` and qc = qvel * cdof (B, nv, 6): over the chain, v_b x vJ_b, where
+    vJ_b counts only the dofs whose axes move with body b (a free joint's
+    translation axes are fixed in the world). A body's later joints do not
+    move its earlier joints' axes, so where a body has several joints each
+    pair (j before k) adds vJ_j x vJ_k."""
+    m = dm.m
+    own_moving = dm.const('body_own_moving', lambda: _body_dof_masks(m)[1])
+    anc = dm.const('body_ancestors', lambda: subtree_matrix(m).T)
+    per_body = _cross_motion(vel, torch.einsum('bv,nvk->nbk', own_moving, qc))
+    if int(m.body_jntnum.max(initial=0)) > 1:
+        first = dm.const('joint_pair_first', lambda: _joint_pairs(m)[0])
+        second = dm.const('joint_pair_second', lambda: _joint_pairs(m)[1])
+        body = dm.const('joint_pair_body', lambda: _joint_pairs(m)[2])
+        pairs = _cross_motion(torch.einsum('pv,nvk->npk', first, qc),
+                              torch.einsum('pv,nvk->npk', second, qc))
+        per_body = per_body.index_add(1, body, pairs)
+    return torch.einsum('ba,nak->nbk', anc, per_body)
 
 
 def spatial_inertia(dm: DeviceModel, kin: Kin) -> torch.Tensor:
@@ -109,22 +155,17 @@ def rne_bias(dm: DeviceModel, kin: Kin, qvel: torch.Tensor,
              cdof: torch.Tensor) -> torch.Tensor:
     """(B, nv) qfrc_bias: Coriolis, centrifugal and gravity forces (mj_rne).
 
-    Gravity enters as a base acceleration of -g. A body's velocity-product
-    acceleration is the sum over its chain of v_b x vJ_b, where vJ_b counts
-    only the dofs whose axes move with body b (a free joint's translation
-    axes are fixed in the world, so its vJ term is rotation only)."""
+    Gravity enters as a base acceleration of -g; the velocity products are
+    `_velocity_product`'s."""
     m = dm.m
     chain = dm.const('body_chain', lambda: _body_dof_masks(m)[0])
-    own_moving = dm.const('body_own_moving', lambda: _body_dof_masks(m)[1])
-    anc = dm.const('body_ancestors', lambda: subtree_matrix(m).T)
     S = dm.const('subtree', lambda: subtree_matrix(m))
     I_sp = spatial_inertia(dm, kin)
 
     qc = qvel[..., None] * cdof                                  # (B, nv, 6)
     vel = torch.einsum('bv,nvk->nbk', chain, qc)                # (B, nbody, 6)
-    vJ = torch.einsum('bv,nvk->nbk', own_moving, qc)
     a0 = torch.cat([torch.zeros_like(dm.gravity), -dm.gravity])
-    acc = a0 + torch.einsum('ba,nak->nbk', anc, _cross_motion(vel, vJ))
+    acc = a0 + _velocity_product(dm, vel, qc)
 
     Iv = (I_sp @ vel[..., None])[..., 0]
     f = (I_sp @ acc[..., None])[..., 0] + _cross_force(vel, Iv)
@@ -134,12 +175,13 @@ def rne_bias(dm: DeviceModel, kin: Kin, qvel: torch.Tensor,
 
 
 def passive_force(dm: DeviceModel, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
-    """(B, nv) qfrc_passive: joint damping and hinge springs (mj_passive).
+    """(B, nv) qfrc_passive: joint damping, and hinge and slide springs
+    (mj_passive; as the reference, no ball-joint springs).
     Dof friction loss is a constraint row (constraints.py), not a force here."""
     m = dm.m
     qfrc = -dm.dof_damping * qvel
     spring = [j for j in range(m.njnt)
-              if m.jnt_stiffness[j] != 0 and int(m.jnt_type[j]) in (2, 3)]
+              if m.jnt_stiffness[j] != 0 and int(m.jnt_type[j]) in (SLIDE, HINGE)]
     if spring:
         qadr = dm.const('spring_qadr', lambda: m.jnt_qposadr[spring])
         dadr = dm.const('spring_dadr', lambda: m.jnt_dofadr[spring])
@@ -177,16 +219,12 @@ def body_accelerations(dm: DeviceModel, kin: Kin, qvel: torch.Tensor, qacc: torc
     """(B, nbody, 6) spatial acceleration (alpha; a) of each body about
     spatial_origin(kin) (mj_rnePostConstraint's cacc). With gravity_offset
     the chain starts from -g, the accelerometer's convention (+9.81 z at
-    rest). Each body adds its own dofs' qacc terms and v x vJ, where vJ
-    counts only the dofs whose axes move with the body (a free joint's
-    translation and rotation parts apart, as in `rne_bias`)."""
+    rest). Each body adds its chain's qacc terms and velocity products
+    (`_velocity_product`, as in `rne_bias`)."""
     m = dm.m
     chain = dm.const('body_chain', lambda: _body_dof_masks(m)[0])
-    own_moving = dm.const('body_own_moving', lambda: _body_dof_masks(m)[1])
-    anc = dm.const('body_ancestors', lambda: subtree_matrix(m).T)
     vel = body_velocities(dm, kin, qvel, cdof)
-    vJ = torch.einsum('bv,nvk->nbk', own_moving, qvel[..., None] * cdof)
     a0 = torch.cat([torch.zeros_like(dm.gravity),
                     -dm.gravity if gravity_offset else torch.zeros_like(dm.gravity)])
     return (a0 + torch.einsum('bv,nvk->nbk', chain, qacc[..., None] * cdof)
-            + torch.einsum('ba,nak->nbk', anc, _cross_motion(vel, vJ)))
+            + _velocity_product(dm, vel, qvel[..., None] * cdof))

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from gym_quadruped_tpu_torch.models.model import FREE, HINGE, DeviceModel
+from gym_quadruped_tpu_torch.models.model import BALL, FREE, HINGE, SLIDE, DeviceModel
 from gym_quadruped_tpu_torch.ops import newton_fused
 from gym_quadruped_tpu_torch.ops.spd_solve import spd_solve_batched
 from gym_quadruped_tpu_torch.physics import dynamics
@@ -101,16 +101,21 @@ def forward(dm: DeviceModel, qpos, qvel, ctrl, warmstart=None,
 
 
 def integrate_pos(dm: DeviceModel, qpos, qvel, h: float) -> torch.Tensor:
-    """mj_integratePos: position update on the quaternion manifold."""
+    """mj_integratePos: position update on the quaternion manifold (a free
+    joint's and a ball joint's quaternions), linear for slide and hinge
+    joints."""
     m = dm.m
     out = qpos.clone()
-    for j in np.flatnonzero(m.jnt_type == FREE):
+    for j in np.flatnonzero((m.jnt_type == FREE) | (m.jnt_type == BALL)):
         qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
-        out[:, qadr:qadr + 3] = qpos[:, qadr:qadr + 3] + h * qvel[:, dadr:dadr + 3]
-        out[:, qadr + 3:qadr + 7] = quat_integrate(
-            qpos[:, qadr + 3:qadr + 7], qvel[:, dadr + 3:dadr + 6], h)
-    qadr = dm.const('hinge_qadr', lambda: m.jnt_qposadr[m.jnt_type == HINGE])
-    dadr = dm.const('hinge_dof', lambda: m.jnt_dofadr[m.jnt_type == HINGE])
+        if int(m.jnt_type[j]) == FREE:
+            out[:, qadr:qadr + 3] = qpos[:, qadr:qadr + 3] + h * qvel[:, dadr:dadr + 3]
+            qadr, dadr = qadr + 3, dadr + 3
+        out[:, qadr:qadr + 4] = quat_integrate(qpos[:, qadr:qadr + 4],
+                                               qvel[:, dadr:dadr + 3], h)
+    linear = lambda: (m.jnt_type == SLIDE) | (m.jnt_type == HINGE)
+    qadr = dm.const('linear_qadr', lambda: m.jnt_qposadr[linear()])
+    dadr = dm.const('linear_dof', lambda: m.jnt_dofadr[linear()])
     if qadr.numel():
         out[:, qadr] = qpos[:, qadr] + h * qvel[:, dadr]
     return out

@@ -2,8 +2,8 @@
 
 Counterpart of gym_quadruped_tpu/physics/kinematics.py (MuJoCo's
 mj_kinematics / mj_comPos). Every tensor has a leading env axis B; the
-per-body loop runs over the static tree in Python. The shipped models use free
-and hinge joints only, one joint per body; other joint types raise.
+per-body loop runs over the static tree in Python, and within a body over its
+joints (free, ball, slide, hinge; any number of them per body).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from gym_quadruped_tpu_torch.models.model import FREE, HINGE, DeviceModel, Model
+from gym_quadruped_tpu_torch.models.model import BALL, FREE, HINGE, SLIDE, DeviceModel, Model
 from gym_quadruped_tpu_torch.utils.maths import (
     quat_from_axis_angle,
     quat_mul,
@@ -41,13 +41,11 @@ class Kin:
 
 
 def check_joints(m: Model):
-    """Raise for a tree this port does not cover yet (ball or slide joints,
-    several joints on one body)."""
-    bad = sorted({int(t) for t in m.jnt_type} - {FREE, HINGE})
+    """Raise for a joint type that is not MuJoCo's free, ball, slide or hinge."""
+    bad = sorted({int(t) for t in m.jnt_type} - {FREE, BALL, SLIDE, HINGE})
     if bad:
-        raise NotImplementedError(f'joint types {bad} (ball=1, slide=2) are not ported')
-    if m.nbody > 1 and int(np.max(m.body_jntnum)) > 1:
-        raise NotImplementedError('bodies with more than one joint are not ported')
+        raise NotImplementedError(f'unknown joint types {bad} (free=0, ball=1, slide=2, '
+                                  f'hinge=3)')
 
 
 def subtree_matrix(m: Model) -> np.ndarray:
@@ -76,12 +74,23 @@ def fk(dm: DeviceModel, qpos: torch.Tensor) -> Kin:
         pos = xpos[p] + quat_rotate(xquat[p], dm.body_pos[b])
         quat = quat_mul(xquat[p], dm.body_quat[b])
         for j in range(int(m.body_jntadr[b]), int(m.body_jntadr[b]) + int(m.body_jntnum[b])):
-            qadr = int(m.jnt_qposadr[j])
-            if int(m.jnt_type[j]) == FREE:
+            qadr, jtype = int(m.jnt_qposadr[j]), int(m.jnt_type[j])
+            if jtype == FREE:
                 pos = qpos[:, qadr:qadr + 3]
                 quat = quat_normalize(qpos[:, qadr + 3:qadr + 7])
                 xanchor[j] = pos
                 xaxis[j] = dm.jnt_axis[j].expand(B, 3)  # free axis is not rotated
+            elif jtype == BALL:
+                anchor = pos + quat_rotate(quat, dm.jnt_pos[j])
+                quat = quat_mul(quat, quat_normalize(qpos[:, qadr:qadr + 4]))
+                pos = anchor - quat_rotate(quat, dm.jnt_pos[j])
+                xanchor[j] = anchor
+                xaxis[j] = quat_rotate(quat, dm.jnt_axis[j])
+            elif jtype == SLIDE:
+                axis = quat_rotate(quat, dm.jnt_axis[j])
+                pos = pos + axis * (qpos[:, qadr] - qpos0[qadr])[:, None]
+                xanchor[j] = pos + quat_rotate(quat, dm.jnt_pos[j])
+                xaxis[j] = axis
             else:  # HINGE
                 anchor = pos + quat_rotate(quat, dm.jnt_pos[j])
                 qloc = quat_from_axis_angle(dm.jnt_axis[j], qpos[:, qadr] - qpos0[qadr])
@@ -130,27 +139,34 @@ def spatial_origin(kin: Kin) -> torch.Tensor:
 
 def cdof(dm: DeviceModel, kin: Kin) -> torch.Tensor:
     """(B, nv, 6) per-dof motion subspace vectors (omega; v) about
-    spatial_origin(kin). Free-joint angular dofs are the body-frame axes."""
+    spatial_origin(kin). A free joint's angular dofs and a ball joint's three
+    dofs are the body-frame axes (about the body origin and the ball's
+    anchor); a hinge's is its axis about its anchor, a slide's (0; axis)."""
     m = dm.m
     B = kin.xpos.shape[0]
     c = spatial_origin(kin)
     out = kin.xpos.new_empty(B, m.nv, 6)
-    for j in range(m.njnt):
-        adr = int(m.jnt_dofadr[j])
+    for j in np.flatnonzero((m.jnt_type == FREE) | (m.jnt_type == BALL)):
+        adr, b = int(m.jnt_dofadr[j]), int(m.jnt_bodyid[j])
         if int(m.jnt_type[j]) == FREE:
-            b = int(m.jnt_bodyid[j])
             out[:, adr:adr + 3] = dm.const('eye3x6', lambda: np.eye(3, 6, 3))
-            R = quat_to_mat(kin.xquat[:, b])                   # (B, 3, 3)
-            axes = R.transpose(1, 2)                           # rows: body axes
-            p = (kin.xpos[:, b] - c)[:, None, :].expand(B, 3, 3)
-            out[:, adr + 3:adr + 6] = torch.cat(
-                [axes, torch.linalg.cross(p, axes)], -1)
+            adr, origin = adr + 3, kin.xpos[:, b]
+        else:
+            origin = kin.xanchor[:, j]
+        axes = quat_to_mat(kin.xquat[:, b]).transpose(1, 2)   # rows: body axes
+        p = (origin - c)[:, None, :].expand(B, 3, 3)
+        out[:, adr:adr + 3] = torch.cat([axes, torch.linalg.cross(p, axes)], -1)
     hinge = dm.const('hinge_jnt', lambda: np.flatnonzero(m.jnt_type == HINGE))
     hdof = dm.const('hinge_dof', lambda: m.jnt_dofadr[m.jnt_type == HINGE])
     if hinge.numel():
         axis = kin.xaxis[:, hinge]
         arm = kin.xanchor[:, hinge] - c[:, None, :]
         out[:, hdof] = torch.cat([axis, torch.linalg.cross(arm, axis)], -1)
+    slide = dm.const('slide_jnt', lambda: np.flatnonzero(m.jnt_type == SLIDE))
+    sdof = dm.const('slide_dof', lambda: m.jnt_dofadr[m.jnt_type == SLIDE])
+    if slide.numel():
+        axis = kin.xaxis[:, slide]
+        out[:, sdof] = torch.cat([torch.zeros_like(axis), axis], -1)
     return out
 
 

@@ -13,7 +13,6 @@ batched paths, which take the batch-trailing twins, in f64.
 
 import zlib
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -22,6 +21,7 @@ from gym_quadruped_tpu.models.builder import load_model as jload
 from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu_torch.physics import engine as peng
 from test_torch_collision_go2 import _port_feat, _port_model, _states
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state
 
 
@@ -47,7 +47,7 @@ def go2():
     qvel = np.concatenate([qvel, np.zeros((9, jm.nv))])
     ctrl = np.concatenate([ctrl, np.zeros((9, jm.nu))])
     warm = np.zeros_like(qvel)
-    ref = jax.jit(lambda q, v, c, w: jeng.step_batched(jm, q, v, c, warmstart=w))(
+    ref = fast_jit(lambda q, v, c, w: jeng.step_batched(jm, q, v, c, warmstart=w))(
         qpos, qvel, ctrl, warm)
     return jm, _port_model(jm), (qpos, qvel, ctrl, warm), ref
 

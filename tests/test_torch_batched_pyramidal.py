@@ -7,12 +7,12 @@ reference programs already differ at ~1e-9 and the Newton solve amplifies
 it (as for spot/flat and go2/flat).
 """
 
-import jax
 import numpy as np
 import torch
 
 from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu_torch.physics import engine as peng
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state
 from test_torch_step_pyramidal import _one_thread, robot_of  # noqa: F401
 
@@ -22,7 +22,7 @@ def test_batch_matches_vmapped_step_batched(robot_of):  # noqa: F811
     B = 4
     qpos, qvel, ctrl = _contact_state(jm, B, seed=31)
     warm = np.zeros_like(qvel)
-    rq, rv, rfwd = jax.jit(lambda q, v, c, w: jeng.step_batched(jm, q, v, c, warmstart=w))(
+    rq, rv, rfwd = fast_jit(lambda q, v, c, w: jeng.step_batched(jm, q, v, c, warmstart=w))(
         qpos, qvel, ctrl, warm)
     q, v, fwd = peng.step_batched(dm, *(torch.as_tensor(x) for x in (qpos, qvel, ctrl, warm)))
     assert bool(fwd.efc.active[:, 20:].any())

@@ -57,6 +57,7 @@ from test_torch_collision_go2 import (
     _poses,
     _states,
 )
+from test_torch_mixed import fast_jit
 
 N_TUMBLED, N_SELF = 8, 16
 GROUPS = {'b2': ['plane-cylinder', 'sphere-cylinder', 'cylinder-box'],
@@ -164,7 +165,7 @@ def test_cylinder_layouts(scene):
 def test_cylinder_group_matches_per_env_collide(scene, robot, group):
     jm, dm, xpos, xmat, got = scene(robot)
     sub = _subset(jm, group)
-    ref = np.asarray(jax.jit(jax.vmap(lambda xp, xm: jcol.collide(
+    ref = np.asarray(fast_jit(jax.vmap(lambda xp, xm: jcol.collide(
         sub, jbt._KinView(xp, xm)).feat))(xpos, xmat))
     near = _check_cyl(dm, group, xpos, xmat, got[:, :, _group_slots(dm.m)[group]], ref,
                       f'{robot}/flat {group}', eager=True)
@@ -174,7 +175,7 @@ def test_cylinder_group_matches_per_env_collide(scene, robot, group):
 @pytest.mark.parametrize('robot,group', CASES, ids=[f'{r}-{g}' for r, g in CASES])
 def test_cylinder_group_matches_collide_bt(scene, robot, group):
     jm, dm, xpos, xmat, got = scene(robot)
-    ref = np.asarray(jax.jit(lambda xp, xm: jbt.collide_bt(_subset(jm, group), xp, xm))(
+    ref = np.asarray(fast_jit(lambda xp, xm: jbt.collide_bt(_subset(jm, group), xp, xm))(
         xpos, xmat)).transpose(2, 0, 1)
     near = _check_cyl(dm, group, xpos, xmat, got[:, :, _group_slots(dm.m)[group]], ref,
                       f'{robot}/flat {group} (bt)')

@@ -38,6 +38,7 @@ from gym_quadruped_tpu.physics import collision_bt as jbt
 from gym_quadruped_tpu.physics.kinematics import fk as jfk
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics import collision as pcol
+from test_torch_mixed import fast_jit
 
 TOL = 1e-9
 NEAR = 0.01
@@ -86,7 +87,7 @@ def _feet_together(jm, B, seed):
 
 
 def _poses(jm, qpos):
-    kin = jax.jit(jax.vmap(lambda q: jfk(jm, q)))(qpos)
+    kin = fast_jit(jax.vmap(lambda q: jfk(jm, q)))(qpos)
     return np.asarray(kin.geom_xpos), np.asarray(kin.geom_xmat)
 
 
@@ -134,7 +135,7 @@ def go2_flat():
                            _states(jm, N_SELF, seed + 1, 2.5),
                            _feet_together(jm, N_FEET, seed + 2)])
     xpos, xmat = _poses(jm, qpos)
-    ref = np.asarray(jax.jit(jax.vmap(lambda xp, xm: jcol.collide(
+    ref = np.asarray(fast_jit(jax.vmap(lambda xp, xm: jcol.collide(
         jm, jbt._KinView(xp, xm)).feat))(xpos, xmat))
     got = _port_feat(dm, xpos, xmat)
     return jm, dm, ref, got
@@ -170,7 +171,7 @@ def test_stairs_world_box_groups(group):
     qpos[:, 0] = rng.uniform(1.2, 2.5, 8)
     qpos[:, 2] += 0.5 * (qpos[:, 0] - 1.05) - 0.1
     xpos, xmat = _poses(jm, qpos)
-    ref = np.asarray(jax.jit(jax.vmap(lambda xp, xm: jcol.collide(
+    ref = np.asarray(fast_jit(jax.vmap(lambda xp, xm: jcol.collide(
         sub, jbt._KinView(xp, xm)).feat))(xpos, xmat))
     got = _port_feat(dm, xpos, xmat)[:, :, _group_slots(dm.m)[group]]
     near = _check(got, ref, f'go2/stairs {group}')

@@ -42,6 +42,7 @@ from gym_quadruped_tpu_torch.env.state import state_from_numpy, tensor_fields
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics.kinematics import fk as pfk
 from gym_quadruped_tpu_torch.utils.maths import quat_to_euler_xyz
+from test_torch_mixed import fast_jit
 from test_torch_step import _close
 
 # deterministic commands and disturbances: scalar ranges, single values
@@ -73,9 +74,9 @@ def spot():
     jenv = JEnv('spot', model=jm, solver_iterations=CONVERGED, **CONFIG)
     env = QuadrupedEnv('spot', model=_port_model(jm), solver_iterations=CONVERGED, **CONFIG)
     return (jenv, env,
-            jax.jit(jax.vmap(lambda k, q, v: jenv.reset(k, qpos=q, qvel=v))),
-            jax.jit(jax.vmap(jenv.step)),
-            jax.jit(jax.vmap(jenv._lift_until_no_contact)))
+            fast_jit(jax.vmap(lambda k, q, v: jenv.reset(k, qpos=q, qvel=v))),
+            fast_jit(jax.vmap(jenv.step)),
+            fast_jit(jax.vmap(jenv._lift_until_no_contact)))
 
 
 def _arrays(m, B, seed, press=0.0):

@@ -42,6 +42,7 @@ from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import engine as peng
 from gym_quadruped_tpu_torch.physics import forces as pfor
 from gym_quadruped_tpu_torch.physics import kinematics as pkin
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state
 
 MAX_CONE = 32
@@ -99,7 +100,7 @@ def test_step_with_applied_force_and_friction(models):
     q, v, fwd = peng.step_batched(dm, *(torch.as_tensor(x) for x in (qpos, qvel, ctrl, warm)),
                                   ITERATIONS, qfrc_applied=torch.as_tensor(qfrc), con_mu=con_mu)
     assert bool(fwd.efc.con_active.any())
-    jstep = jax.jit(lambda q, v, c, f, w, g: jeng.step(
+    jstep = fast_jit(lambda q, v, c, f, w, g: jeng.step(
         jm, q, v, c, qfrc_applied=f, warmstart=w, solver_iterations=ITERATIONS,
         con_mu=jcon.runtime_con_mu(jm, g)))
     for b in range(B):
@@ -147,8 +148,8 @@ def test_per_env_friction_rows(models, robot):
         return make_efc_bt(jm, jcon.constraint_layout(jm), jnp.transpose(f, (1, 2, 0)), q, v,
                            cdof, k.subtree_com[:, 0], con_mu=mu, max_cone=MAX_CONE)
 
-    refs = {'make_efc': jax.jit(jax.vmap(one))(qpos, qvel, feat, ref_mu),
-            'make_efc_bt': jax.jit(batched)(qpos, qvel, feat, ref_mu)}
+    refs = {'make_efc': fast_jit(jax.vmap(one))(qpos, qvel, feat, ref_mu),
+            'make_efc_bt': fast_jit(batched)(qpos, qvel, feat, ref_mu)}
     for where, ref in refs.items():
         for f in dataclasses.fields(pcon.Efc):
             got, want = getattr(efc, f.name), getattr(ref, f.name)

@@ -47,6 +47,22 @@ FAST_COMPILE = {'xla_backend_optimization_level': 0, 'xla_llvm_disable_expensive
                 'xla_cpu_use_fusion_emitters': False}
 
 
+def fast_jit(fn):
+    """`jax.jit(fn)` whose programs compile at FAST_COMPILE: one program per
+    structure, shape and dtype of the arguments, as jit keeps them."""
+    jitted = jax.jit(fn)
+    programs = {}
+
+    def call(*args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(x), jnp.result_type(x)) for x in leaves))
+        if key not in programs:
+            programs[key] = jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
+        return programs[key](*args)
+
+    return call
+
+
 @pytest.fixture(scope='module', autouse=True)
 def _one_thread():
     # tiny batched products are slower on many threads of a shared CPU

@@ -45,6 +45,7 @@ from gym_quadruped_tpu_torch.physics import collision as pcol
 from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import engine as peng
 from gym_quadruped_tpu_torch.physics import kinematics as pkin
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state
 
 MAX_CONE = 32
@@ -88,8 +89,8 @@ def _ref_efcs(jm, qpos, qvel, feat):
         cdof = jax.vmap(lambda k: jkin.cdof(jm, k))(kin)
         return make_efc_bt(jm, jcon.constraint_layout(jm), jnp.transpose(f, (1, 2, 0)), q, v,
                            cdof, kin.subtree_com[:, 0], max_cone=MAX_CONE)
-    return (jax.jit(jax.vmap(one))(qpos, qvel, feat),
-            jax.jit(batched)(qpos, qvel, feat))
+    return (fast_jit(jax.vmap(one))(qpos, qvel, feat),
+            fast_jit(batched)(qpos, qvel, feat))
 
 
 def _check_efc(efc, ref, where):
@@ -200,7 +201,7 @@ def test_solve_batched_matches_vmapped_solve(newton_rows, warm):
     jm, M, a_smooth, jefc, efc = newton_rows
     lay = jcon.constraint_layout(jm)
     w = np.random.RandomState(42).randn(*a_smooth.shape) if warm else a_smooth
-    ref = jax.jit(jax.vmap(lambda M_, a, e, w_: jsol.solve(jm, lay, M_, a, e, warmstart=w_)))(
+    ref = fast_jit(jax.vmap(lambda M_, a, e, w_: jsol.solve(jm, lay, M_, a, e, warmstart=w_)))(
         M, a_smooth, jefc, w)
     got = nf.solve_batched(torch.as_tensor(M), torch.as_tensor(a_smooth), efc,
                            warmstart=torch.as_tensor(w) if warm else None)
@@ -212,7 +213,7 @@ def test_solve_batched_matches_vmapped_solve(newton_rows, warm):
 def test_solve_batched_bt_matches_reference_solve_batched(newton_rows):
     jm, M, a_smooth, jefc, efc = newton_rows
     lay = jcon.constraint_layout(jm)
-    ref = jax.jit(lambda M_, a, e: jsol.solve_batched(jm, lay, M_, a, e))(M, a_smooth, jefc)
+    ref = fast_jit(lambda M_, a, e: jsol.solve_batched(jm, lay, M_, a, e))(M, a_smooth, jefc)
     got = nf.solve_batched_bt(torch.as_tensor(M), torch.as_tensor(a_smooth), efc)
     for g, r, name in zip(got, ref, ('qacc', 'f_simple', 'f_cone', 'qfrc')):
         _close(g, np.asarray(r), 1e-9, name)

@@ -119,8 +119,21 @@ def test_force_range_and_springs_match():
 
 
 def test_unported_joint_types_raise():
+    """Only a joint type that is none of MuJoCo's four raises. spot with its
+    hinges made slide joints (sprung, so that the slide springs act too) now
+    matches the reference (the joint tree of tests/test_torch_joint_tree.py
+    holds ball joints and bodies with two joints)."""
     base = jload('spot', 'flat')
-    jm = dataclasses.replace(base, jnt_type=np.where(base.jnt_type == 3, 2, base.jnt_type))
-    dm = _port(jm)
+    jm = dataclasses.replace(base, jnt_type=np.where(base.jnt_type == 3, 2, base.jnt_type),
+                             jnt_stiffness=np.where(base.jnt_type == 3, 20.0, 0.0))
+    qpos, qvel, ctrl = _state(jm, seed=9)
+    jkin_, jcd, jM, jbias, jpas, _ = _smooth_ref(jm)(qpos, qvel, ctrl)
+    kin, cd, M, bias, pas, _ = _smooth_port(_port(jm), qpos, qvel, ctrl)
+    for f in dataclasses.fields(kin):
+        _close(getattr(kin, f.name), getattr(jkin_, f.name), f.name)
+    for name, p, r in [('cdof', cd, jcd), ('M', M, jM), ('bias', bias, jbias),
+                       ('passive', pas, jpas)]:
+        _close(p, r, name)
+    bad = _port(dataclasses.replace(base, jnt_type=np.where(base.jnt_type == 3, 4, base.jnt_type)))
     with pytest.raises(NotImplementedError, match='joint types'):
-        pkin.fk(dm, torch.as_tensor(np.tile(jm.key_qpos[0], (1, 1))))
+        pkin.fk(bad, torch.as_tensor(np.tile(base.key_qpos[0], (1, 1))))

@@ -27,6 +27,7 @@ from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics import constraints as pcon
 from gym_quadruped_tpu_torch.physics import engine as peng
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state, _ref_steps
 
 
@@ -45,7 +46,7 @@ def go2():
     dm = to_device(from_arrays({f.name: getattr(jm, f.name)
                                 for f in dataclasses.fields(jm)}), 'cpu', torch.float64)
     # the reference's per-env step, compiled once for the module
-    jstep = jax.jit(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w))
+    jstep = fast_jit(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w))
     return jm, dm, jstep
 
 

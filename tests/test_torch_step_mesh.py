@@ -21,6 +21,7 @@ from gym_quadruped_tpu.models.builder import load_model as jload
 from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics import engine as peng
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state
 
 CAP = 30
@@ -42,7 +43,7 @@ def mesh_robot(robot):
     jm = jload(robot, 'flat')
     dm = to_device(from_arrays({f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)}),
                    'cpu', torch.float64)
-    jstep = jax.jit(jax.vmap(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w,
+    jstep = fast_jit(jax.vmap(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w,
                                                          solver_iterations=CAP)))
     return jm, dm, jstep
 

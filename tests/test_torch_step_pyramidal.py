@@ -25,7 +25,6 @@ runner can spread them over its workers.
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -35,6 +34,7 @@ from gym_quadruped_tpu.physics import engine as jeng
 from gym_quadruped_tpu_torch.env import QuadrupedEnv, init_state
 from gym_quadruped_tpu_torch.models.model import from_arrays, to_device
 from gym_quadruped_tpu_torch.physics import engine as peng
+from test_torch_mixed import fast_jit
 from test_torch_step import _close, _contact_state, _ref_steps
 
 
@@ -57,7 +57,7 @@ def robot_of():
             jm = jload(robot, 'flat')
             dm = to_device(from_arrays({f.name: getattr(jm, f.name)
                                         for f in dataclasses.fields(jm)}), 'cpu', torch.float64)
-            made[robot] = jm, dm, jax.jit(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w))
+            made[robot] = jm, dm, fast_jit(lambda q, v, c, w: jeng.step(jm, q, v, c, warmstart=w))
         return made[robot]
     return get
 
