@@ -62,6 +62,13 @@ def stub_cuda():
 
 
 def main():
+    try:
+        phases()
+    finally:
+        cs.stop_workers()
+
+
+def phases():
     args = [a for a in sys.argv[1:] if a not in ('--mpc', '--mixed')]
     B = int(args[0]) if args else 32
     torch.set_num_threads(4)
@@ -72,6 +79,7 @@ def main():
         run = cs.mpc_closed_loop(warm_rate, B=B)
         cs.mpc_card_against_cpu(run)
         cs.mppi_solves(K=B)
+        cs.drain()
         print(f'phases 47-50 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
         return
     if '--mixed' in sys.argv:
@@ -81,6 +89,7 @@ def main():
         cs.cfg5_resume(run, bar, B=B)
         cs.cfg5_record(run)
         cs.cfg5_profile(run)
+        cs.drain()
         print(f'phases 68-73 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
         return
     run = cs.sensors_main_path(B=B)
@@ -89,6 +98,7 @@ def main():
     cs.camera_renders({'flat': (run['env'].model, run['state']),
                        'perlin': terrain['perlin_state']})
     cs.camera_env(B=max(B // 2, 1))
+    cs.drain()
     print(f'phases 42-46 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
 
 

@@ -9,7 +9,7 @@
     python3 chip_smoke.py --robots             # phases 1-2 and 51-67 alone
     python3 chip_smoke.py --mixed              # phases 1-2 and 68-73 alone
     python3 chip_smoke.py --gym                # phases 1-2 and 74-78 alone
-    python3 chip_smoke.py --tree               # phases 1-2 and 79 alone
+    python3 chip_smoke.py --tree               # phases 1-2, 79 and 80 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -37,7 +37,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      identical. With --newton-agreement this phase runs alone after phase 1
      and prints its failures instead of raising (exit code 1 if any), so that
      a copy of this script run in another checkout reads that checkout's
-     kernel on the same seeded states;
+     kernel on the same seeded states. Where a later phase runs phase 5's
+     checks on another model, it takes B=4097 on the soft states alone;
   6. the main path: spot/flat, B=4096, f32, 100 steps of `step_batched` from
      the keyframe with seeded U(-2, 2) torques and the qacc warm start; every
      state finite, contacts active, exactly 2 SPD and 1 Newton kernel
@@ -45,7 +46,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   7. card against CPU: 8 envs stepped 20 times in f64 on the CPU through the
      same functions, from the card's states at steps 0 and 80; every env
      within 1e-3 in qpos of the card after the 20 steps (the line also
-     counts envs whose active rows or slots differed from the card's);
+     counts envs whose active rows or slots differed from the card's). The
+     f64 side of this and of every later card-against-CPU comparison runs
+     in one of CPU_WORKERS spawned processes while the card goes on: its
+     lines come, marked with their phase, when it is done, and its checks
+     fail the run there;
   8. Newton timings on the main path's last step inputs, in both forms: the
      fused kernel (through its C entry point, as in phase 4, and through
      the wrapper), the eager `solver.solve` on the card (the previous Newton
@@ -151,8 +156,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  44. aliengo/perlin's env with IMU and HeightMap (random reset, 5 steps at
      B=4096: env-steps/s, peak memory), every env's height_map_z against
      the heightfield's height at the grid points; hyqreal2/random_boxes' env
-     with HeightMap alone (409,600 rays against 100 boxes per step), 20
-     steps;
+     with HeightMap alone (409,600 rays against 100 boxes per step), 5
+     steps; its reset draws phase 34's random pose (the same seed), whose
+     lift out of contact (deterministic, 100 rounds) phase 34 kept;
  45. Camera(64 x 48, robotcam).render of all 4096 envs of phases 42 (flat)
      and 44 (perlin): ms per render, peak memory, depth finite and >= 0, seg
      ids in [-1, ngeom), the shares of pixels on the terrain and the robot;
@@ -232,13 +238,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      Newton cap of 30 through a mixed env on the card in f32 and on the CPU
      in f64: qpos within 1e-3;
  71. the chunk-1 checkpoint (state tuple, generator state, camera readout)
-     restored into a fresh mixed env bit for bit, chunks 2-3 resumed from
-     it under phase 69's rule;
+     restored into a fresh mixed env bit for bit, chunk 2 resumed from it
+     under phase 69's rule;
  72. each group's 48 steps written to an H5 file with `append_batch` (s,
      MiB), read back with `H5Reader` and `ProprioceptiveDataset` (x 5, y 1
      frames, loaded to the card): one batch equal to the recording (left
      out, with a line that says so, where h5py is not installed);
- 73. a `profiling.trace` of 2 cfg5 steps: its file and each group's
+ 73. a `profiling.trace` of 1 cfg5 step: its file and each group's
      env.step host and device ms.
  74. the single-env gym adapter, `QuadrupedGymEnv(robot='go2')` on the
      card: `reset(seed=0)`, 60 steps of U(-2, 2) torques (within the
@@ -278,6 +284,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      f64 on 8 envs over steps
      60-80 (across the landing) at a Newton cap of 30, the reading and its
      ratio to the bar of 1e-3.
+ 80. the joint tree on random_pyramids (models/fixtures/
+     jointtree-random_pyramids.npz, compiled by the port's `models.builder` from
+     the tree's MJCF as go2's robot file, read with Model.load: 4 tiers
+     about x = 3, 25 pairs: the feet and the tail against the floor and the
+     boxes): B=4096 in f32 from `feature_start` (over the pyramid, dropped
+     onto the tiers' tops and edges), 100 steps of seeded U(-2, 2) torques
+     (steps/s, peak memory, 2 SPD and 1 Newton launch per step, every env
+     finite, 95% of the envs on a tier at step 0 and feet on the tiers); each
+     narrow-phase group's stream and host ms (box-sphere, and box-capsule
+     through the CCD); both kernels at nv = 21 against their plain
+     versions on the last step's inputs (times, bounds, torch.linalg.solve's
+     time, residency); card against CPU f64 on 8 envs over steps 0-20 at a
+     Newton cap of 30, the reading and its ratio to the bar of 1e-3.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -287,7 +306,7 @@ record on the line before the last (go2/perlin's fields prefixed
 `go2_perlin_`, the new robots' `go1_`, `mini_cheetah_`, `hyqreal1_` and
 `<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`, the adapter's `gym_`
 and `gym_b1_`, the scenes' `go2_<scene>_`, phase 78's `parallel_`, the
-joint tree's `tree_`; `sizes_built` lists the sizes each kernel was built
+joint tree's `tree_` and on the pyramids `pyramids_`; `sizes_built` lists the sizes each kernel was built
 for), and {"ok": true, "device": {...}} last. A run of some phases alone (a flag)
 prints their fields on a line of its own, then the same last line.
 """
@@ -305,7 +324,8 @@ import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -323,6 +343,7 @@ from gym_quadruped_tpu_torch.models.model import (
     GEOM_BOX,
     GEOM_HFIELD,
     JOINT_TREE,
+    JOINT_TREE_PYRAMIDS,
     Model,
     load_model,
     to_device,
@@ -404,6 +425,10 @@ GO2_ITERATION_ENVS_BAR = 0.05
 PRESS = 0.03
 PYR_CAP10_BAR = 1e-6
 LS_ITERATIONS = 6
+# median_ms: a timed window of back-to-back calls lasts about this long (a
+# kernel of 1-3 ms takes 7-20 calls, one of 0.01 ms the cap of 100; a plain
+# solve of 100 ms one)
+TIMING_WINDOW_MS = 20.0
 
 
 def contact_rows(lay, K=None):
@@ -434,9 +459,122 @@ T_START = time.perf_counter()
 LOGGED = {}   # phase: the time of its last line
 
 
-def log(phase, msg):
+def log(phase, msg, late=False):
+    """Print a phase's line; `late` for a line of a comparison finished
+    after its phase (`drain`), which leaves the phase's seconds alone."""
     print(f'[{phase}] {msg}', flush=True)
-    LOGGED[phase] = time.perf_counter()
+    if not late:
+        LOGGED[phase] = time.perf_counter()
+        drain(block=False)
+
+
+# ---- the CPU's f64 side of the card-against-CPU comparisons ---------------------------
+# It needs no card: it runs in CPU_WORKERS spawned processes (one thread
+# each) while this process drives the card on. `later` queues a job and
+# what finishes it here (its lines, marked late, and its checks); `drain`
+# runs the finishes of the jobs that are done, in the order queued, and at
+# the end of a run waits for every one. A failed check raises there and
+# fails the run as it did in its phase.
+CPU_WORKERS = 4
+_POOL = []       # the executor, made at the first job
+_PENDING = []    # (future, finish(result))
+
+
+def later(job, args, finish):
+    if not _POOL:
+        _POOL.append(ProcessPoolExecutor(CPU_WORKERS, multiprocessing.get_context('spawn'),
+                                         initializer=one_thread))
+    _PENDING.append((_POOL[0].submit(job, *args), finish))
+
+
+def later_all(jobs, finish):
+    """`later` for several (job, args): finish(their results, in order) once
+    the last is done."""
+    results = []
+    for i, (job, args) in enumerate(jobs):
+        last = i == len(jobs) - 1
+        later(job, args, lambda r, last=last: results.append(r) or (last and finish(results)))
+
+
+def one_thread():
+    torch.set_num_threads(1)   # tiny batched products: one thread is fastest
+
+
+def drain(block=True):
+    while _PENDING and (block or _PENDING[0][0].done()):
+        future, finish = _PENDING.pop(0)
+        finish(future.result())   # its lines are late: they drain nothing
+
+
+def stop_workers():
+    """End the CPU workers, a job still running among them."""
+    if _POOL:
+        pool = _POOL.pop()
+        processes = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in processes:
+            proc.terminate()
+            proc.join()
+
+
+@functools.cache
+def cpu_model(spec):
+    """The CPU's f64 model: `spec` (robot, scene) for its compiled archive,
+    or an archive's path."""
+    if isinstance(spec, tuple):
+        return load_model(*spec, device='cpu', dtype=torch.float64)
+    return to_device(Model.load(spec), 'cpu', torch.float64)
+
+
+def cpu_window(spec, start, ctrls, acts, cap):
+    """A worker's job: `spec`'s envs stepped in f64 from `start` (qpos,
+    qvel, warm start) with `ctrls`, at a Newton cap of `cap` (None: the
+    step's). Returns the final qpos and, per env, whether its active rows
+    or slots differed from `acts` (the card's) at some step."""
+    dm64 = cpu_model(spec)
+    C_all = len(constraint_layout(dm64.m).cone_slots)
+    iters = {} if cap is None else {'solver_iterations': cap}
+    q, v, w = start
+    switched = torch.zeros(q.shape[0], dtype=torch.bool)
+    for ctrl, act in zip(ctrls, acts):
+        q, v, f = engine.step_batched(dm64, q, v, ctrl, warmstart=w, **iters)
+        w = f.qacc
+        switched |= (activation(f.efc, C_all) != act).any(1)
+    return q, switched
+
+
+def cpu_env_steps(robot, scene, kwargs, state, actions, sensors=False):
+    """A worker's job: `state` stepped in f64 through env.step of an env of
+    `robot` on `scene` made with `kwargs` (`cfg3_env`'s with `sensors`,
+    else `QuadrupedEnv`'s), with `actions`. Returns the final state and
+    each step's observations."""
+    dm64 = cpu_model((robot, scene))
+    env = cfg3_env(dm64, **kwargs) if sensors else QuadrupedEnv(robot, model=dm64, **kwargs)
+    obs = []
+    for a in actions:
+        state, o = env.step(state, a)[:2]
+        obs.append(o)
+    return state, obs
+
+
+def cpu_mixed_steps(groups, kwargs, states, actions):
+    """A worker's job: `states` (one per group) stepped in f64 through a
+    mixed env of `groups` ((robot, envs) on flat) made with `kwargs`, with
+    `actions`. Returns the final states."""
+    env = MixedQuadrupedEnv([(r, n, {'model': cpu_model((r, 'flat'))}) for r, n in groups],
+                            scene='flat', **kwargs)
+    for a in actions:
+        states = env.step(states, a)[0]
+    return states
+
+
+def cpu_mppi_costs(cfg, caps, qpos, qvel, ctrls):
+    """A worker's job: go2/flat's MPPI rollout costs of `ctrls` in f64 at
+    each Newton cap of `caps` (phase 50's cost)."""
+    dm64 = cpu_model(('go2', 'flat'))
+    cost = velocity_tracking_cost(dm64, (0.4, 0.0, 0.0), 0.0, float(dm64.m.key_qpos[0][2]))
+    return {c: MPPI(dm64, cost, dataclasses.replace(cfg, solver_iterations=c))._rollout_cost(
+        qpos, qvel, ctrls) for c in caps}
 
 
 def phase_seconds():
@@ -457,10 +595,20 @@ def random_spd(gen, B, n):
 
 
 def median_ms(fn, launches=100, repeats=7, warmup=5):
-    """Median over `repeats` of the mean time of `launches` back-to-back
-    calls, timed with CUDA events after `warmup` calls."""
+    """Median over `repeats` of the mean time of back-to-back calls, timed
+    with CUDA events after `warmup` calls: as many calls as fill
+    TIMING_WINDOW_MS by the time of one, at least one and at most
+    `launches`."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    launches = max(1, min(launches, math.ceil(TIMING_WINDOW_MS / max(start.elapsed_time(end),
+                                                                     1e-3))))
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -611,13 +759,14 @@ def newton_needed_work(M, efc, iterations, ls=LS_ITERATIONS):
 
 
 def newton_agreement(dm, phase=5, iterations=10, envs_bar=ITERATION_ENVS_BAR, press=None,
-                     rounding=False, limits=True):
+                     rounding=False, limits=True, odd_all=False):
     """Phases 5, 10 and 15: the fused Newton kernel against the eager
     `solver.solve` on the card, both with a cap of `iterations`; with
     `press`, also on soft states pressed that much further into the floor.
     With `rounding` (`ROUNDING_ROBOTS`), the bars are referenced to what
     rounding alone does (`rounding_bars`); without `limits`, the case of a
-    hip past its range is left out.
+    hip past its range is left out. At B=4097 (a last block part full) the
+    soft case alone, every case with `odd_all` (phase 5).
     Returns (the max abs qacc difference of the soft B=4096 per-env case from
     a_smooth, the bars each case failed, the set of cone dimensions among
     the active blocks of the soft states)."""
@@ -630,11 +779,13 @@ def newton_agreement(dm, phase=5, iterations=10, envs_bar=ITERATION_ENVS_BAR, pr
     for B in (BATCH, BATCH + 1):
         soft = soft_state(dm, gen, B)
         soft_dims |= set(soft[2].cone_dim_mask.sum(-1)[soft[2].con_active].int().tolist())
-        M, a_s, efc = soft_state(dm, gen, B, limits=True)
-        cases = ((('soft', *soft),) + ((('active limits', M, a_s, efc),) if limits else ())
-                 + (('ns = C = 0', M, a_s, without_rows(efc)),))
-        if press is not None:
-            cases += ((f'pressed {press * 100:g} cm', *soft_state(dm, gen, B, press=press)),)
+        cases = (('soft', *soft),)
+        if B == BATCH or odd_all:
+            M, a_s, efc = soft_state(dm, gen, B, limits=True)
+            cases += (((('active limits', M, a_s, efc),) if limits else ())
+                      + (('ns = C = 0', M, a_s, without_rows(efc)),))
+            if press is not None:
+                cases += ((f'pressed {press * 100:g} cm', *soft_state(dm, gen, B, press=press)),)
         for case, M, a_s, efc in cases:
             rows = efc.active.nonzero()[:, 1]
             log(phase, f'{dm.m.robot}/{dm.m.scene} B={B} {case}: ns={efc.J.shape[1]}, '
@@ -824,7 +975,7 @@ def rounding_bars(got, ref, ref64, it_k, it_32, it_64, label, phase):
 def spot_agreement(dm, phase=5):
     """Phase 5 on spot/flat. Returns (the max abs qacc difference of its
     soft per-env case, the bars failed)."""
-    return newton_agreement(dm, phase)[:2]
+    return newton_agreement(dm, phase, odd_all=True)[:2]
 
 
 def go2_agreement(go2, phase=10, dims_needed=(3, 6)):
@@ -901,8 +1052,10 @@ def pyramidal_agreement(dm, phase, presses=(0.0,), phase5=False):
     return abs_err, failures
 
 
+@functools.cache
 def smi():
-    """The card's name and power limit, as nvidia-smi gives them."""
+    """The card's name and power limit, as nvidia-smi gives them (read once:
+    the machine can set neither)."""
     return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                           capture_output=True, text=True, check=True).stdout.strip()
 
@@ -1034,7 +1187,7 @@ def card_continued(dm, start, t0, n):
     return ctrls, acts, q
 
 
-def card_against_cpu(dm, run, phase, cap=None, dm64=None):
+def card_against_cpu(dm, run, phase, cap=None, cpu_spec=None, then=None):
     """Phases 7, 12, 17, 22, 27, 37 and 79: the run's first envs stepped
     CPU_STEPS times in f64 on the CPU through the same functions, from the
     card's states at each start of the run's windows; every env's qpos after
@@ -1047,17 +1200,19 @@ def card_against_cpu(dm, run, phase, cap=None, dm64=None):
     path's own state at the cap of 10 is printed beside it.
     The line also counts the envs whose set of active simple rows and cone
     slots differed from the card's at some step (a row at its activation
-    threshold to rounding), which would explain a failure. `dm64` is the
-    CPU's f64 model (by default the compiled archive of dm's robot and
-    scene). Returns each window's max |qpos diff|."""
+    threshold to rounding), which would explain a failure. `cpu_spec`
+    names the CPU's f64 model for `cpu_model` (by default dm's robot and
+    scene). The f64 steps run in a CPU worker (`later`): each window's line
+    and check come when it is done, and then `then(errs)`, each window's
+    max |qpos diff|."""
     torch.set_num_threads(1)   # tiny batched products: one thread is fastest
     m = dm.m
-    if dm64 is None:
-        dm64 = load_model(m.robot, m.scene, device='cpu', dtype=torch.float64)
+    spec = cpu_spec or (m.robot, m.scene)
     errs = []
-    C_all = len(constraint_layout(dm64.m).cone_slots)
+    C_all = len(constraint_layout(m).cone_slots)
     ctrls, states, acts, n = run['ctrls'], run['states'], run['acts'], run['n_cpu']
-    for t0 in run['windows']:
+    windows = run['windows']
+    for t0 in windows:
         if t0 + CPU_STEPS > ctrls.shape[0]:
             ctrl_w, acts_w, end = card_continued(dm, states[t0], t0, n)
         else:
@@ -1074,28 +1229,29 @@ def card_against_cpu(dm, run, phase, cap=None, dm64=None):
                 wc = fc.qacc
                 acts_w.append(activation(fc.efc, C_all))
             end = qc
-        iters = {} if cap is None else {'solver_iterations': cap}
-        q, v, w = (x.double().cpu() for x in states[t0])
-        switched = torch.zeros(n, dtype=torch.bool)
-        for ctrl, act in zip(ctrl_w, acts_w):
-            q, v, f = engine.step_batched(dm64, q, v, ctrl.double().cpu(), warmstart=w, **iters)
-            w = f.qacc
-            switched |= (activation(f.efc, C_all) != act.cpu()).any(1)
-        err = (end.double().cpu() - q).abs().max().item()
-        errs.append(err)
-        beside = '' if cap is None else (
-            f' (both at a Newton cap of {cap}; the main path at the cap of 10 against it '
-            f'{(at_cap10.double().cpu() - q).abs().max().item():.3e})')
-        log(phase, f'{m.robot}/{m.scene}, {n} envs, steps {t0}..{t0 + CPU_STEPS}: card f32 '
-                   f'vs CPU f64 max |qpos diff| {err:.3e}{beside}; envs where a row or slot '
-                   f'switched on one side only {int(switched.sum())}')
-        # f32 steps against f64 steps: the f32 Newton tolerance is 1e-6 of
-        # |qacc| and 20 steps of 2 ms keep the drift far below the 1e-3 qpos
-        # bar that the reference holds against MuJoCo
-        if not err < 1e-3:
-            raise AssertionError(f'{m.robot}/{m.scene}: card and CPU trajectories differ by '
-                                 f'{err}')
-    return errs
+
+        def finish(result, t0=t0, end=end.double().cpu(), at_cap10=at_cap10.double().cpu()):
+            q, switched = result
+            err = (end - q).abs().max().item()
+            errs.append(err)
+            beside = '' if cap is None else (
+                f' (both at a Newton cap of {cap}; the main path at the cap of 10 against it '
+                f'{(at_cap10 - q).abs().max().item():.3e})')
+            log(phase, f'{m.robot}/{m.scene}, {n} envs, steps {t0}..{t0 + CPU_STEPS}: card f32 '
+                       f'vs CPU f64 max |qpos diff| {err:.3e}{beside}; envs where a row or slot '
+                       f'switched on one side only {int(switched.sum())}', late=True)
+            # f32 steps against f64 steps: the f32 Newton tolerance is 1e-6 of
+            # |qacc| and 20 steps of 2 ms keep the drift far below the 1e-3 qpos
+            # bar that the reference holds against MuJoCo
+            if not err < 1e-3:
+                raise AssertionError(f'{m.robot}/{m.scene}: card and CPU trajectories differ by '
+                                     f'{err}')
+            if then is not None and len(errs) == len(windows):
+                then(errs)
+
+        start = tuple(x.double().cpu() for x in states[t0])
+        later(cpu_window, (spec, start, ctrl_w.double().cpu(), [a.cpu() for a in acts_w], cap),
+              finish)
 
 
 def newton_timing(last, phase, rounding=False, cap=10):
@@ -1267,7 +1423,8 @@ def narrow_phase_groups(dm, run, phase):
     dispatches, views left out (each launches one kernel or a few); a group
     slower than 0.2 s is timed over the one call that counts its operations
     (the count's dispatch mode adds to its host time, not much to its
-    stream time)."""
+    stream time). Returns {group: stream ms}."""
+    stream = {}
     kin = kinematics.fk(dm, run['state'][0])
     log(phase, f'narrow phase of {dm.m.robot}/{dm.m.scene} by pair group, on {smi()}:')
     with OpCount():     # the dispatch mode's first use in a process takes seconds
@@ -1293,9 +1450,12 @@ def narrow_phase_groups(dm, run, phase):
             end.record()
         host_ms = (time.perf_counter() - h0) / n * 1e3
         torch.cuda.synchronize()
-        log(phase, f'  narrow phase {collision._GEOM_NAMES[t1]}-{collision._GEOM_NAMES[t2]} '
-                   f'({args[2].shape[1]} pairs): stream {start.elapsed_time(end) / n:.3f} ms, host '
-                   f'{host_ms:.3f} ms, {ops.count} tensor operations')
+        group = f'{collision._GEOM_NAMES[t1]}-{collision._GEOM_NAMES[t2]}'
+        stream[group] = start.elapsed_time(end) / n
+        log(phase, f'  narrow phase {group} ({args[2].shape[1]} pairs): stream '
+                   f'{stream[group]:.3f} ms, host {host_ms:.3f} ms, {ops.count} tensor '
+                   f'operations')
+    return stream
 
 
 def sync_count(fn):
@@ -1473,36 +1633,41 @@ def env_card_against_cpu(run, phase=32, cap=GO2_AGREEMENT_ITERATIONS):
     env, actions = run['env'], run['actions']
     cfg = dict(base_vel_command_type='forward', ref_base_lin_vel=(0.0, 1.0),
                ground_friction_coeff=(0.5, 1.5))
-    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
-    envs = {(dev, it): QuadrupedEnv('go2', model=dm, solver_iterations=it, **cfg)
-            for dev, dm in (('card', env.model), ('cpu', dm64)) for it in (cap, 10)}
     start = run['kept'][100]
     centred = start.map(torch.clone)
     centred.qpos[:, :2] = 0.0
-    runs = {(dev, it, where): s.to('cpu', torch.float64) if dev == 'cpu' else s
-            for (dev, it) in envs for where, s in (('origin', centred), ('spawn', start))
-            if (dev, where) != ('card', 'spawn') and (it, where) != (cap, 'spawn')}
-    for t in range(100, 100 + CPU_STEPS):
-        a = actions[t, :N_CPU_ENVS]
-        for (dev, it, where), s in runs.items():
-            runs[dev, it, where] = envs[dev, it].step(s, a if dev == 'card' else a.double().cpu())[0]
-    runs['card', 10, 'spawn'] = run['kept'][100 + CPU_STEPS]     # the main path's own
-
-    def err(it, where):
-        diff = (runs['card', it, where].qpos.double().cpu() - runs['cpu', it, where].qpos).abs()
-        per_env = diff.amax(-1)
-        return per_env.max().item(), int((per_env >= 1e-3).sum())
-
-    gate, at10, spawn = err(cap, 'origin'), err(10, 'origin'), err(10, 'spawn')
+    acts = actions[100:100 + CPU_STEPS, :N_CPU_ENVS]
+    card = {}
+    for it in (cap, 10):
+        s = centred
+        step = QuadrupedEnv('go2', model=env.model, solver_iterations=it, **cfg).step
+        for a in acts:
+            s = step(s, a)[0]
+        card[it, 'origin'] = s.qpos.double().cpu()
+    card[10, 'spawn'] = run['kept'][100 + CPU_STEPS].qpos.double().cpu()   # the main path's own
     dist = start.qpos[:, :2].abs().amax(-1)
-    log(phase, f'go2/flat env, {N_CPU_ENVS} envs, steps 100..{100 + CPU_STEPS}, card f32 vs CPU '
-               f'f64 max |qpos diff| (envs at 1e-3 or more): moved to the origin, Newton cap '
-               f'{cap} {gate[0]:.3e} ({gate[1]}); the same at the cap of 10 {at10[0]:.3e} '
-               f'({at10[1]}); the main path\'s own states at their spawn positions (|x|, |y| up '
-               f'to {dist.max().item():.1f} m, the nearest {dist.min().item():.1f} m), cap 10 '
-               f'{spawn[0]:.3e} ({spawn[1]})')
-    if not gate[0] < 1e-3:
-        raise AssertionError(f'go2/flat env: card and CPU trajectories differ by {gate[0]}')
+
+    def finish(cpu):
+        def err(it, where):
+            per_env = (card[it, where] - cpu[it, where]).abs().amax(-1)
+            return per_env.max().item(), int((per_env >= 1e-3).sum())
+
+        gate, at10, spawn = err(cap, 'origin'), err(10, 'origin'), err(10, 'spawn')
+        log(phase, f'go2/flat env, {N_CPU_ENVS} envs, steps 100..{100 + CPU_STEPS}, card f32 vs '
+                   f'CPU f64 max |qpos diff| (envs at 1e-3 or more): moved to the origin, Newton '
+                   f'cap {cap} {gate[0]:.3e} ({gate[1]}); the same at the cap of 10 '
+                   f'{at10[0]:.3e} ({at10[1]}); the main path\'s own states at their spawn '
+                   f'positions (|x|, |y| up to {dist.max().item():.1f} m, the nearest '
+                   f'{dist.min().item():.1f} m), cap 10 {spawn[0]:.3e} ({spawn[1]})', late=True)
+        if not gate[0] < 1e-3:
+            raise AssertionError(f'go2/flat env: card and CPU trajectories differ by {gate[0]}')
+
+    # the CPU's f64 runs in the workers: (cap, where)
+    cpu_runs = ((cap, 'origin'), (10, 'origin'), (10, 'spawn'))
+    later_all([(cpu_env_steps, ('go2', 'flat', dict(cfg, solver_iterations=it),
+                                (centred if where == 'origin' else start).to('cpu', torch.float64),
+                                acts.double().cpu())) for it, where in cpu_runs],
+              lambda results: finish({k: r[0].qpos for k, r in zip(cpu_runs, results)}))
 
 
 def env_quarantine(run, phase=33):
@@ -1536,12 +1701,38 @@ def env_quarantine(run, phase=33):
                f'envs {t_bad:.1f}, healthy {t_ok:.1f}, plain env.step {t_plain:.1f}; on {smi()}')
 
 
+# the lifts out of contact at reset that phase 34 computed, for phase 44: an
+# env of the same robot and scene reset from the same seed draws the same
+# random pose, and the lift is deterministic (hyqreal2/random_boxes' runs
+# its cap of 100 rounds, ~20 s)
+LIFTS = {}
+
+
+def memo_lift(env, key):
+    """Serve env's reset lift from LIFTS[key] where its input equals the kept
+    one (then `env.lift_served` is True), else compute it and keep it."""
+    lift = env._lift_until_no_contact
+    env.lift_served = False
+
+    def memo(qpos):
+        if key in LIFTS and torch.equal(LIFTS[key][0], qpos):
+            env.lift_served = True
+            out, rounds = LIFTS[key][1]
+            return out.clone(), rounds
+        out = lift(qpos)
+        LIFTS[key] = (qpos.clone(), (out[0].clone(), out[1]))
+        return out
+
+    env._lift_until_no_contact = memo
+
+
 def env_random_boxes(phase=34, steps=5):
     """Phase 34: the hyqreal2/random_boxes env (BASELINE cfg4) at B=4096 with a
     forward+rotate command: random reset (lift rounds), `steps` steps with
     seeded U(-2, 2) torques, env-steps/s, launches, peak memory, finite."""
     env = QuadrupedEnv('hyqreal2', scene='random_boxes', base_vel_command_type='forward+rotate',
                        ref_base_lin_vel=(0.0, 1.0), ref_base_ang_vel=(-0.5, 0.5))
+    memo_lift(env, ('hyqreal2', 'random_boxes'))
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1908,36 +2099,42 @@ def sensors_card_against_cpu(run, phase=43, cap=GO2_AGREEMENT_ITERATIONS):
     beside them."""
     torch.set_num_threads(1)
     env, actions = run['env'], run['actions']
-    dm64 = load_model('aliengo', 'flat', device='cpu', dtype=torch.float64)
-    envs = {(dev, it): cfg3_env(dm, solver_iterations=it, sensors_kwargs=(IMU_QUIET, HEIGHTMAP_KW))
-            for dev, dm in (('card', env.model), ('cpu', dm64)) for it in (cap, 10)}
     start = run['kept'].map(torch.clone)
     start.qpos[:, :2] = 0.0
-    states = {(dev, it): start.to('cpu', torch.float64) if dev == 'cpu' else start
-              for dev, it in envs}
-    obs = {k: [] for k in envs}
     t0 = SENSOR_CPU_START
-    for t in range(t0, t0 + CPU_STEPS):
-        a = actions[t, :N_CPU_ENVS]
-        for (dev, it), s in states.items():
-            s, o = envs[dev, it].step(s, a if dev == 'card' else a.double().cpu())[:2]
-            states[dev, it] = s
-            obs[dev, it].append(o)
-    out = {}
+    acts = actions[t0:t0 + CPU_STEPS, :N_CPU_ENVS]
+    kw = {it: dict(solver_iterations=it, sensors_kwargs=(IMU_QUIET, HEIGHTMAP_KW))
+          for it in (cap, 10)}
+    card = {}
     for it in (cap, 10):
-        q = (states['card', it].qpos.double().cpu() - states['cpu', it].qpos).abs().max().item()
-        out[it] = q, sensor_obs_err(obs['card', it], obs['cpu', it])
-    fmt = lambda e: ', '.join(f'{k} {v:.3e}' for k, v in e.items() if k != 'qpos')
-    log(phase, f'aliengo/flat env with sensors, {N_CPU_ENVS} envs moved to the origin, steps '
-               f'{t0}..{t0 + CPU_STEPS}, card f32 vs CPU f64: Newton cap {cap}: max |qpos diff| '
-               f'{out[cap][0]:.3e}; max diff over the steps of 1 + max|f64|: {fmt(out[cap][1])}; '
-               f'at the cap of 10: qpos {out[10][0]:.3e}, {fmt(out[10][1])}')
-    if not out[cap][0] < 1e-3:
-        raise AssertionError(f'cfg3 env: card and CPU trajectories differ by {out[cap][0]}')
-    for name, bar in SENSOR_BARS.items():
-        if not out[cap][1][name] < bar:
-            raise AssertionError(f'cfg3 env: {name} of the card off the CPU f64 by '
-                                 f'{out[cap][1][name]} (bar {bar})')
+        s, obs = start, []
+        step = cfg3_env(env.model, **kw[it]).step
+        for a in acts:
+            s, o = step(s, a)[:2]
+            obs.append(o)
+        card[it] = s, obs
+
+    def finish(cpu):
+        out = {}
+        for it in (cap, 10):
+            q = (card[it][0].qpos.double().cpu() - cpu[it][0].qpos).abs().max().item()
+            out[it] = q, sensor_obs_err(card[it][1], cpu[it][1])
+        fmt = lambda e: ', '.join(f'{k} {v:.3e}' for k, v in e.items() if k != 'qpos')
+        log(phase, f'aliengo/flat env with sensors, {N_CPU_ENVS} envs moved to the origin, steps '
+                   f'{t0}..{t0 + CPU_STEPS}, card f32 vs CPU f64: Newton cap {cap}: max |qpos '
+                   f'diff| {out[cap][0]:.3e}; max diff over the steps of 1 + max|f64|: '
+                   f'{fmt(out[cap][1])}; at the cap of 10: qpos {out[10][0]:.3e}, '
+                   f'{fmt(out[10][1])}', late=True)
+        if not out[cap][0] < 1e-3:
+            raise AssertionError(f'cfg3 env: card and CPU trajectories differ by {out[cap][0]}')
+        for name, bar in SENSOR_BARS.items():
+            if not out[cap][1][name] < bar:
+                raise AssertionError(f'cfg3 env: {name} of the card off the CPU f64 by '
+                                     f'{out[cap][1][name]} (bar {bar})')
+
+    later_all([(cpu_env_steps, ('aliengo', 'flat', kw[it], start.to('cpu', torch.float64),
+                                acts.double().cpu(), True)) for it in (cap, 10)],
+              lambda results: finish(dict(zip((cap, 10), results))))
 
 
 def terrain_sensors(phase=44, B=BATCH, steps=5):
@@ -1948,8 +2145,9 @@ def terrain_sensors(phase=44, B=BATCH, steps=5):
     hfield geom's pose applied; vertical rays are exact, so the bar is f32
     rounding of the origin's z). Then hyqreal2/random_boxes' env with the
     heightmap alone: `steps` steps at B, each casting B x 100 rays against
-    the plane and 100 boxes. Returns {'perlin_state': (the perlin env's
-    model, its last state), scene: launches}."""
+    the plane and 100 boxes; its reset's lift is phase 34's where the drawn
+    pose is the same (`memo_lift`). Returns {'perlin_state': (the perlin
+    env's model, its last state), scene: launches}."""
     out = {}
     for robot, scene, sensors, kw in (('aliengo', 'perlin', (IMU, HeightMap), (IMU_KW, HEIGHTMAP_KW)),
                                       ('hyqreal2', 'random_boxes', (HeightMap,), (HEIGHTMAP_KW,))):
@@ -1957,6 +2155,7 @@ def terrain_sensors(phase=44, B=BATCH, steps=5):
         names = ('qpos', 'qvel') + tuple(n for n in SENSOR_OBS[2:]
                                          if n.startswith('height') or robot == 'aliengo')
         env = cfg3_env(dm, state_obs_names=names, sensors=sensors, sensors_kwargs=kw)
+        memo_lift(env, (robot, scene))
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         sync()
         torch.cuda.reset_peak_memory_stats()
@@ -1978,7 +2177,9 @@ def terrain_sensors(phase=44, B=BATCH, steps=5):
         launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
         hm = obs['height_map_z']
         log(phase, f'{robot}/{scene} env with {"IMU and " if robot == "aliengo" else ""}HeightMap '
-                   f'B={B}: reset {reset_s:.3f} s ({env.lift_rounds} lift rounds); {steps} env.steps '
+                   f'B={B}: reset {reset_s:.3f} s ({env.lift_rounds} lift rounds'
+                   f'{", the lift of phase 34 served: the same draw" if env.lift_served else ""}); '
+                   f'{steps} env.steps '
                    f'in {wall:.3f} s = {steps / wall:.3f} steps/s = {B * steps / wall:.1f} '
                    f'env-steps/s; launches spd_solve {spd.launches}, newton_fused {nf.launches}; '
                    f'height_map_z in [{hm.min().item():.4f}, {hm.max().item():.4f}]; peak device '
@@ -2297,7 +2498,7 @@ def mpc_solves(phase=47, B=BATCH):
             fn()
         syncs = sync_count(fn)
         host = host_ms(fn, repeats=5)
-        prof_host, dev = range_ms(named(fn, 'mpc_solve'), 'mpc_solve', 2)
+        prof_host, dev = range_ms(named(fn, 'mpc_solve'), 'mpc_solve')
         iters = cfg.iterations if warm is None else cfg.warm_iterations
         flop = mpc_flop(B, cfg.horizon, iters)
         n_bytes = B * 4 * (m.nq + m.nv + 12 + 1 + 3 + 1 + 12 * cfg.horizon * (1 + 3)
@@ -2427,7 +2628,7 @@ def mpc_closed_loop(warm_rate, phase=48, B=BATCH, steps=MPC_STEPS):
     tick = lambda: mpc_tick(mpc, state, ref, warm)
     syncs = sync_count(tick)
     tick_host = host_ms(tick)
-    prof_host, tick_dev = range_ms(named(tick, 'mpc_tick'), 'mpc_tick', 2)
+    prof_host, tick_dev = range_ms(named(tick, 'mpc_tick'), 'mpc_tick')
     sync()
     t1 = time.perf_counter()
     bare = state
@@ -2574,7 +2775,8 @@ def mppi_rollout_agreement(mppi, qpos, qvel, ctrls, phase):
     the kernel and through the eager f32 solve at the rollouts' cap (the
     eager one at one iteration fewer and one more printed beside it), and
     in f64 on the CPU at that cap (printed) and at a cap of 30, where the
-    solves converge (MPPI_COST_BAR). Returns the bars failed."""
+    solves converge (MPPI_COST_BAR; in a CPU worker, checked when done).
+    Returns the bars failed on the card."""
     torch.set_num_threads(1)   # tiny batched products: one thread is fastest
     dm, cfg = mppi.model, mppi.cfg
     cap = cfg.solver_iterations
@@ -2586,10 +2788,6 @@ def mppi_rollout_agreement(mppi, qpos, qvel, ctrls, phase):
     with mock.patch.object(nf, 'solve_batched', eager_newton):
         eager = {c: at(dm, mppi.cost_fn, c)._rollout_cost(qpos, qvel, ctrls).double().cpu()
                  for c in (cap - 1, cap, cap + 1)}
-    dm64 = load_model('go2', 'flat', device='cpu', dtype=torch.float64)
-    cost64 = velocity_tracking_cost(dm64, (0.4, 0.0, 0.0), 0.0, float(dm.m.key_qpos[0][2]))
-    args64 = (qpos.double().cpu(), qvel.double().cpu(), ctrls.double().cpu())
-    f64 = {c: at(dm64, cost64, c)._rollout_cost(*args64) for c in (cap, GO2_AGREEMENT_ITERATIONS)}
     k_e = rel(kernel, eager[cap])
     gap = (kernel - eager[cap]).abs().max().item()
     log(phase, f'{len(ctrls)} rollouts at a Newton cap of {cap}, costs through the kernel '
@@ -2600,19 +2798,26 @@ def mppi_rollout_agreement(mppi, qpos, qvel, ctrls, phase):
                f'against it at {cap}: {rel(eager[cap - 1], eager[cap]):.3e} and '
                f'{rel(eager[cap + 1], eager[cap]):.3e} (what a kernel stopping one iteration '
                f'off reads)')
-    c30 = rel(card30, f64[GO2_AGREEMENT_ITERATIONS])
-    log(phase, f'against f64 on the CPU: at a cap of {GO2_AGREEMENT_ITERATIONS} (converged) card '
-               f'f32 {c30:.3e} (bar {MPPI_COST_BAR}); at {cap} (printed) the kernel '
-               f'{rel(kernel, f64[cap]):.3e}, the eager f32 solve {rel(eager[cap], f64[cap]):.3e}; '
-               f'f64 at {cap} against f64 at {GO2_AGREEMENT_ITERATIONS} '
-               f'{rel(f64[cap], f64[GO2_AGREEMENT_ITERATIONS]):.3e}')
+
+    def finish(f64):
+        c30 = rel(card30, f64[GO2_AGREEMENT_ITERATIONS])
+        log(phase, f'against f64 on the CPU: at a cap of {GO2_AGREEMENT_ITERATIONS} (converged) '
+                   f'card f32 {c30:.3e} (bar {MPPI_COST_BAR}); at {cap} (printed) the kernel '
+                   f'{rel(kernel, f64[cap]):.3e}, the eager f32 solve '
+                   f'{rel(eager[cap], f64[cap]):.3e}; f64 at {cap} against f64 at '
+                   f'{GO2_AGREEMENT_ITERATIONS} {rel(f64[cap], f64[GO2_AGREEMENT_ITERATIONS]):.3e}',
+            late=True)
+        if not c30 <= MPPI_COST_BAR:
+            raise AssertionError(f'MPPI rollout costs at a cap of {GO2_AGREEMENT_ITERATIONS}: '
+                                 f'card and f64 CPU differ by {c30:.3e}')
+
+    later(cpu_mppi_costs, (cfg, (cap, GO2_AGREEMENT_ITERATIONS), qpos.double().cpu(),
+                           qvel.double().cpu(), ctrls.double().cpu()), finish)
+
     failures = []
     if not k_e <= MPPI_CAP4_COST_BAR:
         failures.append(f'MPPI rollout costs at a cap of {cap}: kernel and eager f32 differ by '
                         f'{k_e:.3e}')
-    if not c30 <= MPPI_COST_BAR:
-        failures.append(f'MPPI rollout costs at a cap of {GO2_AGREEMENT_ITERATIONS}: card and f64 '
-                        f'CPU differ by {c30:.3e}')
     return failures
 
 
@@ -3069,36 +3274,39 @@ def cfg5_card_against_cpu(run, phase=70, n=CFG5_CPU_ENVS, cap=ROBOT_CPU_CAP):
         s = s.map(lambda x: x[:n].clone())
         s.qpos[:, :2] = 0.0
         start.append(s)
+    kw = dict(state_obs_names=CFG5_OBS, solver_iterations=cap)
     card = MixedQuadrupedEnv([(e.robot_name, n, {'model': e.model}) for e in env.groups],
-                             scene='flat', state_obs_names=CFG5_OBS, solver_iterations=cap)
-    cpu = MixedQuadrupedEnv(
-        [(e.robot_name, n, {'model': load_model(e.robot_name, 'flat', device='cpu',
-                                                dtype=torch.float64)}) for e in env.groups],
-        scene='flat', state_obs_names=CFG5_OBS, solver_iterations=cap)
+                             scene='flat', **kw)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + phase)
     actions = torch.rand(CPU_STEPS, card.batch_size, card.nu_max, generator=gen,
                          device=DEVICE) * 4.0 - 2.0
-    s_card, s_cpu = tuple(start), tuple(s.to('cpu', torch.float64) for s in start)
+    s_card = tuple(start)
     t0 = time.perf_counter()
     for a in actions:
         s_card = card.step(s_card, a)[0]
-        s_cpu = cpu.step(s_cpu, a.double().cpu())[0]
-    errs = {e.robot_name: (c.qpos.double().cpu() - f.qpos).abs().max().item()
-            for e, c, f in zip(env.groups, s_card, s_cpu)}
-    log(phase, f'{n} envs of each group, steps {2 * CFG5_CHUNK}..{2 * CFG5_CHUNK + CPU_STEPS} '
-               f'at a Newton cap of {cap}, card f32 vs CPU f64 max |qpos diff|: '
-               + ', '.join(f'{r} {v:.3e}' for r, v in errs.items())
-               + f' ({time.perf_counter() - t0:.1f} s)')
-    if not max(errs.values()) < 1e-3:
-        raise AssertionError(f'cfg5: card and CPU trajectories differ: {errs}')
+    card_s = time.perf_counter() - t0
+
+    def finish(s_cpu):
+        errs = {e.robot_name: (c.qpos.double().cpu() - f.qpos).abs().max().item()
+                for e, c, f in zip(env.groups, s_card, s_cpu)}
+        log(phase, f'{n} envs of each group, steps {2 * CFG5_CHUNK}..'
+                   f'{2 * CFG5_CHUNK + CPU_STEPS} at a Newton cap of {cap}, card f32 vs CPU f64 '
+                   f'max |qpos diff|: ' + ', '.join(f'{r} {v:.3e}' for r, v in errs.items())
+                   + f' (the card\'s steps {card_s:.1f} s)', late=True)
+        if not max(errs.values()) < 1e-3:
+            raise AssertionError(f'cfg5: card and CPU trajectories differ: {errs}')
+
+    later(cpu_mixed_steps, ([(e.robot_name, n) for e in env.groups], kw,
+                            tuple(s.to('cpu', torch.float64) for s in start),
+                            actions.double().cpu()), finish)
 
 
 def cfg5_resume(run, bar, phase=71, B=BATCH):
     """Phase 71: the checkpoint written after chunk 1 restored into a freshly
     built mixed env with a fresh generator: every tensor, the generator's
-    state and the camera readout bit for bit as saved; then chunks 2-3 again
-    from it (their torques drawn from the restored generator), the final
-    state and the camera readouts held to phase 69's rule."""
+    state and the camera readout bit for bit as saved; then chunk 2 again
+    from it (its torques drawn from the restored generator), the state
+    after it and its camera readout held to phase 69's rule."""
     out_dir = Path(CFG5_DIR)
     env = cfg5_env(B)
     gen = torch.Generator(device=DEVICE)
@@ -3115,17 +3323,14 @@ def cfg5_resume(run, bar, phase=71, B=BATCH):
     if not (equal and same_gen and torch.equal(depth, run['readouts'][0])):
         raise AssertionError('the restored checkpoint differs from what was saved')
     cam = Camera(env.groups[1].model, **CFG5_CAMERA)
-    readouts = []
-    for k in range(1, CFG5_CHUNKS):
-        acts = torch.rand(CFG5_CHUNK, B, env.nu_max, generator=gen, device=DEVICE) * 4.0 - 2.0
-        state, d = rollout_with_sensors(lambda s, a: env.step(s, a, gen), state, acts,
-                                        lambda s: cam.shoot(s[1].qpos)[0], CFG5_CHUNK)
-        readouts.append(d)
-        if not torch.equal(acts, run['actions'][k]):
-            raise AssertionError(f'the restored generator drew other torques for chunk {k + 1}')
-    equal, gap = state_gap(state, run['states'][CFG5_CHUNK * CFG5_CHUNKS])
-    cam_gap = max((a - b).abs().max().item() for a, b in zip(readouts, run['readouts'][1:]))
-    log(phase, f'resumed chunks 2-{CFG5_CHUNKS} against the uninterrupted run: state bitwise '
+    acts = torch.rand(CFG5_CHUNK, B, env.nu_max, generator=gen, device=DEVICE) * 4.0 - 2.0
+    state, readout = rollout_with_sensors(lambda s, a: env.step(s, a, gen), state, acts,
+                                          lambda s: cam.shoot(s[1].qpos)[0], CFG5_CHUNK)
+    if not torch.equal(acts, run['actions'][1]):
+        raise AssertionError('the restored generator drew other torques for chunk 2')
+    equal, gap = state_gap(state, run['states'][2 * CFG5_CHUNK])
+    cam_gap = (readout - run['readouts'][1]).abs().max().item()
+    log(phase, f'resumed chunk 2 against the uninterrupted run: state bitwise '
                f'equal {equal}, max |difference| {gap:.3e}; camera readouts max |difference| '
                f'{cam_gap:.3e} (bar {bar:.3e})')
     if not (equal or gap <= bar) or (bar == 0 and cam_gap != 0):
@@ -3188,7 +3393,7 @@ def cfg5_record(run, phase=72):
             raise AssertionError(f'{e.robot_name}: the H5 read-back differs from the recording')
 
 
-def cfg5_profile(run, phase=73, n_steps=2):
+def cfg5_profile(run, phase=73, n_steps=1):
     """Phase 73: a `profiling.trace` of n_steps cfg5 steps from the last
     state: the trace file, and each group's env.step (profiler range
     `mixed/<robot>`) host and device ms per step (the port's own kernels,
@@ -3201,7 +3406,7 @@ def cfg5_profile(run, phase=73, n_steps=2):
             state = env.step(state, action)[0]
     cuda = torch.autograd.DeviceType.CUDA
     averages = tr.profile.key_averages()
-    log(phase, f'trace of {n_steps} cfg5 steps: {tr.path} '
+    log(phase, f'trace of {n_steps} cfg5 step{"s" * (n_steps != 1)}: {tr.path} '
                f'({tr.path.stat().st_size / 2**20:.1f} MiB); on {smi()}')
     for e in env.groups:
         ev = [a for a in averages if a.key == f'mixed/{e.robot_name}' and a.device_type != cuda]
@@ -3742,25 +3947,128 @@ def joint_tree(phase=79, steps=TREE_STEPS):
     newton = newton_timing(run['last'], phase)
     parts.append(('kernels', time.perf_counter()))
 
-    dm64 = to_device(m, 'cpu', torch.float64)
-    err, = card_against_cpu(dm, run, phase, ROBOT_CPU_CAP, dm64=dm64)
-    log(phase, f'joint tree, card f32 against CPU f64 over steps {TREE_WINDOW}..'
-               f'{TREE_WINDOW + CPU_STEPS} at a Newton cap of {ROBOT_CPU_CAP}: max |qpos diff| '
-               f'{err:.3e} = {err / TREE_QPOS_BAR:.4f} of the bar {TREE_QPOS_BAR}')
-    parts.append(('card against CPU', time.perf_counter()))
+    newton.update(steps_per_s=run['steps_per_s'])
+
+    def then(errs):
+        err, = errs
+        log(phase, f'joint tree, card f32 against CPU f64 over steps {TREE_WINDOW}..'
+                   f'{TREE_WINDOW + CPU_STEPS} at a Newton cap of {ROBOT_CPU_CAP}: max |qpos '
+                   f'diff| {err:.3e} = {err / TREE_QPOS_BAR:.4f} of the bar {TREE_QPOS_BAR}',
+            late=True)
+        newton['card_against_cpu_f64'] = err
+
+    card_against_cpu(dm, run, phase, ROBOT_CPU_CAP, cpu_spec=str(JOINT_TREE), then=then)
+    parts.append(('card against CPU, its card side', time.perf_counter()))
     log(phase, 'seconds of the phase: ' + ', '.join(
         f'{name} {t - (parts[i - 1][1] if i else t0):.1f}' for i, (name, t) in enumerate(parts)))
-    newton.update(steps_per_s=run['steps_per_s'], card_against_cpu_f64=err)
+    return run['launches'], spd_fields, newton
+
+
+# ---- phase 80: the joint tree on random_pyramids ----------------------------------------
+
+# the card's steps, and the CPU's f64 window from step 0 (the starts stand
+# on the tiers)
+PYRAMID_STEPS = 100
+PYRAMID_CPU_ENVS = 8
+
+
+def pyramids(phase=80, steps=PYRAMID_STEPS):
+    """Phase 80: the joint tree on random_pyramids
+    (models/fixtures/jointtree-random_pyramids.npz, which the port's `build_model`
+    compiled from the tree's MJCF as go2's robot file; read with the port's
+    `Model.load`, no MuJoCo) on the card at B=4096 in f32: `main_path`'s
+    `steps` steps of seeded U(-2, 2) torques from `feature_start` (over the
+    pyramid, dropped until the first slot touches); at least
+    SCENE_TOUCH_SHARE of the envs on a tier at step 0, feet on the tiers
+    (the envs with a foot on one at each step);
+    each narrow-phase group's stream and host ms on the last state; the
+    last step's SPD and Newton kernels at nv = 21 against their plain
+    versions on the inputs it gave them; the card against the CPU's f64 on
+    PYRAMID_CPU_ENVS envs over steps 0-20 at a Newton cap of 30, its reading
+    and its ratio to TREE_QPOS_BAR. Returns (launches, SPD fields, Newton
+    fields)."""
+    m = Model.load(JOINT_TREE_PYRAMIDS)
+    dm = to_device(m, 'cuda', torch.float32)
+    lay = constraint_layout(m)
+    t0 = time.perf_counter()
+    start = feature_start(dm, BATCH, torch.Generator(device='cuda').manual_seed(SEED))
+    sync()
+    boxes = np.flatnonzero((m.geom_bodyid == 0) & (m.geom_type == GEOM_BOX))
+    sizes = newton_sizes(m)
+    spd_blocks, spd_per_block = spd.occupancy(m.nv)
+    nf_blocks, nf_per_block, smem = nf.occupancy(*sizes)
+    log(phase, f'joint tree on {m.scene}: {len(boxes)} tiers (half-widths '
+               f'{[round(float(x), 3) for x in m.geom_size[boxes, 0]]} m, '
+               f'{2 * m.geom_size[boxes[0], 2]:.4f} m high, about x = {m.geom_pos[boxes[0], 0]}), '
+               f'{len(m.contact_pairs)} contact pairs, {len(lay.con_geom1)} slots of which '
+               f'{int(world_box_slots(dm).sum())} against a tier; Newton at (nv, ns, C) = {sizes}: '
+               f'{nf_blocks} blocks of {nf_per_block} envs per SM, {smem} B of shared memory per '
+               f'block; SPD at n = {m.nv}: {spd_blocks} blocks of {spd_per_block} systems per SM; '
+               f'starts in {time.perf_counter() - t0:.2f} s: base x in '
+               f'[{start[:, 0].min().item():.3f}, {start[:, 0].max().item():.3f}], z in '
+               f'[{start[:, 2].min().item():.3f}, {start[:, 2].max().item():.3f}]')
+    parts = [('start', time.perf_counter())]
+    incl = dm.const('con_incl', lambda: lay.con_incl)
+    feet = dm.const('feet_slot', lambda: np.isin(lay.con_geom2, m.feet_geom_id))
+    counts = []
+
+    def on_step(fwd):
+        touching = fwd.contacts.dist < incl
+        on = touching & world_box_slots(dm)
+        counts.append(torch.stack([touching.any(1).sum(), on.any(1).sum(),
+                                   (on & feet).any(1).sum()]))   # no sync
+
+    run = main_path(dm, phase, steps, (0,), PYRAMID_CPU_ENVS, start=start, on_step=on_step)
+    world, envs, feet_envs = torch.stack(counts).T
+    log(phase, f'envs touching a tier {envs[0].item()} of {BATCH} at step 0 (the floor or a '
+               f'tier {world[0].item()}), {envs.min().item()}-{envs.max().item()} over the '
+               f'steps; envs with a foot on a tier {feet_envs[0].item()} at step 0, '
+               f'{feet_envs.min().item()}-{feet_envs.max().item()} over the steps, '
+               f'{feet_envs[-1].item()} at the last')
+    # a start over a tier's edge may touch the floor first: the slide joints'
+    # offsets of up to 5 cm shift the feet by about half a tier's height
+    if int(envs[0]) < SCENE_TOUCH_SHARE * BATCH or int(feet_envs.max()) == 0:
+        raise AssertionError(f'{envs[0].item()} of {BATCH} envs on a tier at step 0 (at least '
+                             f'{SCENE_TOUCH_SHARE:.0%} must), at most {feet_envs.max().item()} '
+                             f'with a foot on one (some must)')
+    parts.append(('main path', time.perf_counter()))
+    groups = narrow_phase_groups(dm, run, phase)
+    parts.append(('narrow phase by group', time.perf_counter()))
+
+    qpos, qvel, warm = run['state']
+    _, spds, _ = kept_kernel_inputs(lambda: engine.step_batched(
+        dm, qpos, qvel, torch.zeros(BATCH, m.nu, device='cuda'), warmstart=warm))
+    spd_fields = spd_at(*spds[0], phase, 'joint tree on the pyramids, its smooth solve')
+    newton = newton_timing(run['last'], phase)
+    parts.append(('kernels', time.perf_counter()))
+
+    newton.update(steps_per_s=run['steps_per_s'], narrow_phase_stream_ms=groups)
+
+    def then(errs):
+        err, = errs
+        log(phase, f'joint tree on {m.scene}, card f32 against CPU f64 over steps 0..{CPU_STEPS} '
+                   f'at a Newton cap of {ROBOT_CPU_CAP}: max |qpos diff| {err:.3e} = '
+                   f'{err / TREE_QPOS_BAR:.4f} of the bar {TREE_QPOS_BAR}', late=True)
+        newton['card_against_cpu_f64'] = err
+
+    card_against_cpu(dm, run, phase, ROBOT_CPU_CAP, cpu_spec=str(JOINT_TREE_PYRAMIDS), then=then)
+    parts.append(('card against CPU, its card side', time.perf_counter()))
+    log(phase, 'seconds of the phase: ' + ', '.join(
+        f'{name} {t - (parts[i - 1][1] if i else t0):.1f}' for i, (name, t) in enumerate(parts)))
     return run['launches'], spd_fields, newton
 
 
 def tree_phases(spd_fields, newton_fields):
-    """Phase 79: the general joint tree."""
-    launches, spd_out, newton = joint_tree()
-    spd_fields.update({'tree_' + k: v for k, v in spd_out.items()})
-    spd_fields['tree_launches'] = launches['spd_solve']
-    newton_fields.update({'tree_' + k: v for k, v in newton.items()})
-    newton_fields['tree_launches'] = launches['newton_fused']
+    """Phases 79-80: the general joint tree, on its floor and on
+    random_pyramids. Their Newton fields are read once their CPU
+    comparisons are done (`drain`)."""
+    outs = [(prefix, *fn()) for prefix, fn in (('tree_', joint_tree), ('pyramids_', pyramids))]
+    drain()
+    for prefix, launches, spd_out, newton in outs:
+        spd_fields.update({prefix + k: v for k, v in spd_out.items()})
+        spd_fields[prefix + 'launches'] = launches['spd_solve']
+        newton_fields.update({prefix + k: v for k, v in newton.items()})
+        newton_fields[prefix + 'launches'] = launches['newton_fused']
 
 
 def main():
@@ -3768,9 +4076,11 @@ def main():
         run()
     except Exception:
         # the seconds of each phase so far, then the failure itself
-        log('time', f'seconds per phase until the failure: {phase_seconds()}; '
-                    f'{time.perf_counter() - T_START:.1f} s in all')
+        print(f'[time] seconds per phase until the failure: {phase_seconds()}; '
+              f'{time.perf_counter() - T_START:.1f} s in all', flush=True)
         raise
+    finally:
+        stop_workers()
 
 
 def run():
@@ -3791,7 +4101,8 @@ def run():
                         help='run phases 1-2 and 74-78 alone (the gym adapter, go2 on ramp, '
                              'slippery and stairs, parallel/)')
     parser.add_argument('--tree', action='store_true',
-                        help='run phases 1-2 and 79 alone (the general joint tree)')
+                        help='run phases 1-2, 79 and 80 alone (the general joint tree, on its '
+                             'floor and on random_pyramids)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -3843,6 +4154,7 @@ def run():
             tree_phases(spd_fields, newton_fields)
         else:
             mpc_phases(spd_fields, newton_fields)
+        drain()
         log('time', f'seconds per phase: {phase_seconds()}; '
                     f'{time.perf_counter() - T_START:.1f} s in all')
         print(json.dumps({'launches and timings of these phases': {
@@ -3927,9 +4239,10 @@ def run():
     # stairs; parallel/ at world size 1 on nccl
     gym_phases(spd_fields, newton_fields)
 
-    # ---- 79. the general joint tree: ball, slide and two joints on a body; both
-    # kernels at nv = 21
+    # ---- 79-80. the general joint tree: ball, slide and two joints on a body; both
+    # kernels at nv = 21; then on random_pyramids, compiled by the port itself
     tree_phases(spd_fields, newton_fields)
+    drain()
 
     log('time', f'seconds per phase (from the last line of the phase before): '
                 f'{phase_seconds()}; {time.perf_counter() - T_START:.1f} s in all')

@@ -52,7 +52,7 @@ def quarantine_step(env, state: EnvState, action, generator: torch.Generator):
 
     The reference skips the reset with a `lax.cond` inside its program. Here
     the step syncs with the host once (whether any env diverged); only when
-    one did, `env.reset` runs for those envs alone (its lift loop syncs once
+    one did, `env.reset` runs for those envs alone (its lift loop syncs twice
     per round) and they are written into the batch by index, their sensor
     states with them."""
     state2, obs, reward, term, trunc, info = env.step(state, action, generator)

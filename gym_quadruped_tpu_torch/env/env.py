@@ -302,7 +302,10 @@ class QuadrupedEnv:
         at most LIFT_ROUNDS rounds of 1.1 times the deepest foot penetration
         (quadruped_env.py:376-388). Each env stops on its own condition, as
         the reference's per-env while_loop does under vmap; a round steps
-        only the envs still in contact and syncs with the host once."""
+        only the envs still in contact and syncs with the host twice. Where
+        the lift moves none of them (a penetration of ~1e-9 m is below the
+        dtype's resolution of z), every round left would repeat this one:
+        the loop ends there with the cap's count, the same result."""
         dm = self.model
         if len(constraint_layout(dm.m).con_condim) == 0:
             return qpos, 0
@@ -315,7 +318,12 @@ class QuadrupedEnv:
             if keep.numel() == 0:
                 break
             envs, pen = envs[keep], pen[keep]
-            qpos[envs, 2] += 1.1 * pen
+            z = qpos[envs, 2]
+            lifted = z + 1.1 * pen
+            if not bool((lifted != z).any()):
+                rounds = LIFT_ROUNDS
+                break
+            qpos[envs, 2] = lifted
             in_contact, pen = self._feet_penetration(qpos[envs])
             rounds += 1
         return qpos, rounds

@@ -30,8 +30,10 @@ CONE_PYRAMIDAL, CONE_ELLIPTIC = 0, 1
 # by path, so the port needs nothing else from that package.
 COMPILED_DIR = Path(__file__).resolve().parents[2] / 'gym_quadruped_tpu' / 'models' / 'compiled'
 # A test model of the port's own: every joint type on one tree, under go2's
-# names (scripts/torch_port/make_joint_tree.py writes it).
+# names, on a floor and on the random_pyramids scene at seed 10
+# (scripts/torch_port/make_joint_tree.py writes both).
 JOINT_TREE = Path(__file__).resolve().parent / 'fixtures' / 'jointtree-flat.npz'
+JOINT_TREE_PYRAMIDS = JOINT_TREE.with_name('jointtree-random_pyramids.npz')
 
 _TUPLE_FIELDS = ('terrain_limits', 'body_names', 'jnt_names', 'geom_names',
                  'site_names', 'cam_names')
@@ -280,12 +282,17 @@ def to_device(m: Model, device='cuda', dtype: torch.dtype = torch.float32) -> De
 
 def load_model(robot: str, scene: str = 'flat', sim_dt: float = 0.002,
                device='cuda', dtype: torch.dtype = torch.float32) -> DeviceModel:
-    """Load a compiled model archive onto `device` (counterpart of the JAX
-    package's builder.load_model, without its MJCF fallback)."""
+    """The model of `robot` on `scene` on `device`: its compiled archive
+    where there is one, else compiled from the robot's MJCF by
+    `models.builder.build_model` (which needs `mujoco` and the MJCF assets,
+    and raises FileNotFoundError where there are none)."""
     path = COMPILED_DIR / f'{robot}-{scene}.npz'
-    if not path.exists():
-        raise FileNotFoundError(f'no compiled model archive for {robot}/{scene}: {path}')
-    m = Model.load(path)
-    if m.timestep != sim_dt:
-        m = dataclasses.replace(m, timestep=sim_dt)
+    if path.exists():
+        m = Model.load(path)
+        if m.timestep != sim_dt:
+            m = dataclasses.replace(m, timestep=sim_dt)
+    else:
+        from gym_quadruped_tpu_torch.models import builder
+
+        m = builder.build_model(robot, scene, sim_dt)
     return to_device(m, device, dtype)

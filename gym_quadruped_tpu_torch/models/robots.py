@@ -3,12 +3,15 @@ joint-space zero pose, foot geom names, per-leg joint names and IMU sensor
 names (the reference's robot_cfgs.py:7-60).
 
 The port's own copy of gym_quadruped_tpu/models/robots.py, numpy only. The
-port reads the compiled model archives, so it needs no MJCF asset lookup.
+step reads compiled model archives; `find_assets_dir` locates the robot MJCF
+files that `models.builder` compiles them from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from pathlib import Path
 
 import numpy as np
 
@@ -64,3 +67,25 @@ def get_robot_config(robot_name: str) -> RobotConfig:
 
 def available_robots() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def find_assets_dir() -> Path | None:
+    """A directory of robot MJCF assets in the robot_model layout
+    (`<dir>/<robot>/<robot>.xml`, as `RobotConfig.mjcf_filename` names them).
+
+    Search order: $GYM_QUADRUPED_ASSETS, the assets vendored in this package
+    (gym_quadruped_tpu_torch/assets/robot_model), an installed `gym_quadruped`
+    package's robot_model. None when there are none (the compiled archives
+    still load)."""
+    env = os.environ.get('GYM_QUADRUPED_ASSETS')
+    if env and Path(env).exists():
+        return Path(env)
+    vendored = Path(__file__).resolve().parent.parent / 'assets' / 'robot_model'
+    if vendored.exists():
+        return vendored
+    try:
+        import gym_quadruped  # type: ignore
+    except ImportError:
+        return None
+    cand = Path(gym_quadruped.__file__).parent / 'robot_model'
+    return cand if cand.exists() else None

@@ -1,4 +1,4 @@
-"""Build the joint-tree test model and write it to the port's fixtures.
+"""Build the joint-tree test models and write them to the port's fixtures.
 
 A quadruped with every joint type on one tree, under go2's names (so go2's
 robot config reads it): a free base (a box trunk with the `imu` site and the
@@ -10,10 +10,15 @@ foot sphere `{leg}`; 12 motors. nq 23, nv 21. The tail is unlimited: the
 reference's limit rows read a ball joint's qpos as a scalar, which is not
 MuJoCo's ball limit.
 
-The MJCF is compiled with `mujoco`, extracted with the reference's
-`models.builder.extract_model` and written with its `Model.save`, so the
-archive is the reference's own format; the port reads it with `Model.load`
-(no MuJoCo, no JAX).
+Two archives, both made with the port's `models.builder` and written with
+`Model.save` (the JAX package's format; `Model.load` reads it, with no
+MuJoCo):
+* `jointtree-flat.npz`: the MJCF with its own floor, compiled with `mujoco`
+  and copied by `extract_model`;
+* `jointtree-random_pyramids.npz`: the MJCF without the floor, written as
+  go2's robot file into a robot_model layout (`write_robot_assets`), and
+  compiled on the random_pyramids scene at seed 10 by `build_model`, as a
+  user compiles their own robot: 4 axis-aligned tiers about x = 3.
 
     python3 scripts/torch_port/make_joint_tree.py
 """
@@ -21,14 +26,20 @@ archive is the reference's own format; the port reads it with `Model.load`
 from __future__ import annotations
 
 import math
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from gym_quadruped_tpu_torch.models.model import JOINT_TREE  # noqa: E402
+from gym_quadruped_tpu_torch.models import builder  # noqa: E402
+from gym_quadruped_tpu_torch.models.model import JOINT_TREE, JOINT_TREE_PYRAMIDS  # noqa: E402
+from gym_quadruped_tpu_torch.models.robots import get_robot_config  # noqa: E402
 
 ROBOT, SCENE = 'go2', 'flat'
+# the procedural scene of the second archive, at `build_model`'s default seed
+PYRAMIDS = 'random_pyramids'
 # (x_max, x_min, y_max, y_min): random resets spawn within 10 m of the origin
 TERRAIN_LIMITS = (10.0, -10.0, 10.0, -10.0)
 
@@ -61,8 +72,7 @@ LEG = """
 MJCF = """
 <mujoco model="jointtree">
   <option timestep="0.002" cone="elliptic" impratio="100"/>
-  <worldbody>
-    <geom name="floor" type="plane" size="0 0 0.05" friction="1 0.005 0.0001"/>
+  <worldbody>{floor}
     <body name="base" pos="0 0 0.3">
       <freejoint/>
       <inertial pos="0.01 0 0" mass="7.0" diaginertia="0.03 0.09 0.1"/>
@@ -93,15 +103,20 @@ MOTOR = ('    <motor name="{leg}_{part}" joint="{leg}_{part}_joint" ctrlrange="-
          ' ctrllimited="true"/>')
 
 
-def mjcf() -> str:
-    """The MJCF text of the joint tree."""
+FLOOR = '\n    <geom name="floor" type="plane" size="0 0 0.05" friction="1 0.005 0.0001"/>'
+
+
+def mjcf(floor: bool = True) -> str:
+    """The MJCF text of the joint tree; floor=False leaves out its floor, as a
+    robot's own MJCF does (the scene brings the floor)."""
     legs = ''.join(LEG.format(leg=leg, x=x, y=y, side=0.03 if y > 0 else -0.03)
                    for leg, (x, y) in LEGS.items())
     motors = '\n'.join(MOTOR.format(leg=leg, part=part, lim=lim) for leg in LEGS
                        for part, lim in (('hip', 23.7), ('thigh', 23.7), ('calf', 100)))
     legs_q = ' '.join('0 0.2 0' for _ in LEGS)
     tail_q = f'{math.cos(TAIL_PITCH / 2):.12f} 0 {math.sin(TAIL_PITCH / 2):.12f} 0'
-    return MJCF.format(legs=legs, motors=motors, legs_q=legs_q, tail_q=tail_q)
+    return MJCF.format(floor=FLOOR if floor else '', legs=legs, motors=motors,
+                       legs_q=legs_q, tail_q=tail_q)
 
 
 def mj_model():
@@ -111,20 +126,34 @@ def mj_model():
     return mujoco.MjModel.from_xml_string(mjcf())
 
 
-def reference_model():
-    """The reference's Model of the joint tree (`extract_model`)."""
-    from gym_quadruped_tpu.models.builder import extract_model
+def write_robot_assets(assets_dir) -> Path:
+    """Write the tree's MJCF without its floor as go2's robot file under
+    `assets_dir` (`<assets_dir>/go2/go2.xml`, the robot_model layout that
+    `robots.find_assets_dir` finds through $GYM_QUADRUPED_ASSETS); returns
+    its path."""
+    path = Path(assets_dir) / get_robot_config(ROBOT).mjcf_filename
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(mjcf(floor=False))
+    return path
 
-    return extract_model(mj_model(), ROBOT, SCENE, TERRAIN_LIMITS)
+
+def flat_model():
+    """The port's Model of the tree on its own floor (`extract_model`)."""
+    return builder.extract_model(mj_model(), ROBOT, SCENE, TERRAIN_LIMITS)
 
 
 def main():
-    m = reference_model()
-    JOINT_TREE.parent.mkdir(parents=True, exist_ok=True)
-    m.save(JOINT_TREE)
-    print(f'{JOINT_TREE}: nq {m.nq}, nv {m.nv}, {m.njnt} joints (types '
-          f'{m.jnt_type.tolist()}), {len(m.contact_pairs)} contact pairs, '
-          f'{JOINT_TREE.stat().st_size} bytes')
+    models = {JOINT_TREE: flat_model()}
+    with tempfile.TemporaryDirectory() as assets:
+        write_robot_assets(assets)
+        os.environ['GYM_QUADRUPED_ASSETS'] = assets
+        models[JOINT_TREE_PYRAMIDS] = builder.build_model(ROBOT, PYRAMIDS)
+    for path, m in models.items():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        m.save(path)
+        print(f'{path}: nq {m.nq}, nv {m.nv}, {m.njnt} joints (types '
+              f'{m.jnt_type.tolist()}), {len(m.contact_pairs)} contact pairs, '
+              f'{path.stat().st_size} bytes')
 
 
 if __name__ == '__main__':

@@ -5,7 +5,9 @@ In a fresh interpreter, a meta-path finder refuses `jax`, `jaxlib` and
 allowed) and records every refusal with the file that asked. Then every
 module of `gym_quadruped_tpu_torch` is imported, and `chip_smoke` (the
 script's own imports with it). Nothing may have been refused, and none of
-the refused names may be in `sys.modules`.
+the refused names may be in `sys.modules`; nor may `mujoco`, which
+`models.builder` and the replay tools import only when called (a GPU host need not
+have it).
 """
 
 import json
@@ -55,7 +57,8 @@ for name in modules + ['chip_smoke']:
     except Exception as e:
         errors[name] = repr(e)
 print(json.dumps({'modules': modules, 'refused': REFUSED, 'errors': errors,
-                  'loaded': sorted(m for m in sys.modules if _refused(m))}))
+                  'loaded': sorted(m for m in sys.modules if _refused(m)),
+                  'mujoco': sorted(m for m in sys.modules if m.split('.')[0] == 'mujoco')}))
 '''
 
 
@@ -70,8 +73,11 @@ def test_no_jax_and_no_reference_package():
     # the modules of this slice among them
     assert {'gym_quadruped_tpu_torch.env.gym_adapter', 'gym_quadruped_tpu_torch.parallel.mesh',
             'gym_quadruped_tpu_torch.parallel.distributed', 'gym_quadruped_tpu_torch.utils.legs',
-            'gym_quadruped_tpu_torch.utils.symmetry'} <= names
+            'gym_quadruped_tpu_torch.utils.symmetry', 'gym_quadruped_tpu_torch.models.builder',
+            'gym_quadruped_tpu_torch.models.scenes', 'gym_quadruped_tpu_torch.utils.replay',
+            'gym_quadruped_tpu_torch.utils.mujoco_visual'} <= names
     assert len(names) > 40
     assert res['errors'] == {}, res['errors']
     assert res['refused'] == [], res['refused']
     assert res['loaded'] == []
+    assert res['mujoco'] == []

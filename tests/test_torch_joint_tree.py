@@ -26,8 +26,8 @@ Forward) are compiled the same way, side by side where the cores allow.
   reference does), and `fk` normalises it.
 * `Model.save` round trips through the port's `Model.load` and the
   reference's, on go2/flat and on the tree.
-* Where `mujoco` imports: the archive rebuilt from the MJCF equals the
-  committed one array by array, and the port's qacc equals
+* Where `mujoco` imports: the archive the reference rebuilds from the MJCF
+  equals the committed one array by array, and the port's qacc equals
   `mujoco.mj_forward`'s to 1e-8 at states in the air (the oracle's solver
   run to a tolerance of 1e-15).
 """
@@ -443,8 +443,15 @@ def _make_joint_tree():
 
 
 def test_archive_rebuilds_from_the_mjcf():
+    """The reference's `extract_model` on the tree's MJCF gives the archive
+    that the port's builder wrote (tests/test_torch_builder.py holds the
+    port's `models.builder` to the same archive)."""
     pytest.importorskip('mujoco')
-    rebuilt, committed = _make_joint_tree().reference_model(), JModel.load(JOINT_TREE)
+    from gym_quadruped_tpu.models.builder import extract_model
+
+    mk = _make_joint_tree()
+    rebuilt = extract_model(mk.mj_model(), mk.ROBOT, mk.SCENE, mk.TERRAIN_LIMITS)
+    committed = JModel.load(JOINT_TREE)
     for f in dataclasses.fields(JModel):
         got, want = getattr(rebuilt, f.name), getattr(committed, f.name)
         if isinstance(want, np.ndarray):
