@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""CPU f32 run of chip_smoke.py's sensor phases (42-46), MPC phases (47-50)
-or mixed-batch phases (68-73) at a small batch.
+"""CPU f32 run of chip_smoke.py's sensor phases (42-46), MPC phases (47-50),
+mixed-batch phases (68-73) at a small batch, or the example drives' phase
+81.
 
     python3 chip_rehearse.py [B]          # B=32 by default, ~6 min on 4 threads
     python3 chip_rehearse.py [B] --mpc    # phases 47-50, MPPI at K=B
     python3 chip_rehearse.py [B] --mixed  # phases 68-73, cfg5 at B envs
+    python3 chip_rehearse.py --examples   # phase 81 (B=1 drives), ~2 min
 
 It checks the phases' control flow, shapes and bars without a card, and
 prints their lines with the same checks: the launch counts come from
@@ -69,7 +71,7 @@ def main():
 
 
 def phases():
-    args = [a for a in sys.argv[1:] if a not in ('--mpc', '--mixed')]
+    args = [a for a in sys.argv[1:] if a not in ('--mpc', '--mixed', '--examples')]
     B = int(args[0]) if args else 32
     torch.set_num_threads(4)
     stub_cuda()
@@ -81,6 +83,10 @@ def phases():
         cs.mppi_solves(K=B)
         cs.drain()
         print(f'phases 47-50 on the CPU at B={B}: {time.perf_counter() - t0:.1f} s')
+        return
+    if '--examples' in sys.argv:
+        cs.example_phases({}, {})
+        print(f'phase 81 on the CPU: {time.perf_counter() - t0:.1f} s')
         return
     if '--mixed' in sys.argv:
         run = cs.cfg5_main_path(B=B)

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mixed              # phases 1-2 and 68-73 alone
     python3 chip_smoke.py --gym                # phases 1-2 and 74-78 alone
     python3 chip_smoke.py --tree               # phases 1-2, 79 and 80 alone
+    python3 chip_smoke.py --examples           # phases 1-2 and 81 alone
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: require CUDA, print `nvidia-smi` name and power limit, turn
@@ -297,6 +298,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      versions on the last step's inputs (times, bounds, torch.linalg.solve's
      time, residency); card against CPU f64 on 8 envs over steps 0-20 at a
      Newton cap of 30, the reading and its ratio to the bar of 1e-3.
+ 81. the example drives through their `main` on the card
+     (gym_quadruped_tpu_torch/examples/): go2_mpc_locomotion at 1 s (500
+     env.steps at B=1 from the keyframe, a cold solve and 100 warm
+     replans): its own lines, steps/s and solves/s, launches per env.step
+     (2 SPD, 1 Newton; counts set to 0 just before the drive, read just
+     after) and host synchronisations per env.step, z, vx over the last 0.5
+     s against the command and the contact flags, upright and finite; both
+     kernels against their plain versions on one more step from its last
+     state (the Newton kernel at go2's cap of 30, as phase 74);
+     aliengo_with_sensors (aliengo/perlin, IMU, 10 x 10 heightmap, 20 steps,
+     the 64 x 48 depth camera): the IMU's reading, the heightmap's and the
+     depth image's ranges, both kernels against their plain versions on
+     one more step from its last state (as go2's); the live plotter fed
+     go2's torques and joint positions as tensors on the card, its children
+     exiting with code 0 within their join timeout. The RGB path (mujoco;
+     Camera.image in an interpreter of its own) and aliengo_dataset and
+     dataset_reproduction (h5py) run where their package imports, and are
+     left out with a line where it does not; the viewer needs a display.
 Phases 8, 13, 18, 23 and 28 also hold the kernel against the eager f32
 solve on the last step's inputs, on the envs both converged, and print
 both f32 solves' distance there from an eager f64 solve.
@@ -306,7 +325,8 @@ record on the line before the last (go2/perlin's fields prefixed
 `go2_perlin_`, the new robots' `go1_`, `mini_cheetah_`, `hyqreal1_` and
 `<robot>_perlin_`, cfg5's `cfg5_` and `cfg5_<robot>_`, the adapter's `gym_`
 and `gym_b1_`, the scenes' `go2_<scene>_`, phase 78's `parallel_`, the
-joint tree's `tree_` and on the pyramids `pyramids_`; `sizes_built` lists the sizes each kernel was built
+joint tree's `tree_` and on the pyramids `pyramids_`, the example drives'
+`examples_`; `sizes_built` lists the sizes each kernel was built
 for), and {"ok": true, "device": {...}} last. A run of some phases alone (a flag)
 prints their fields on a line of its own, then the same last line.
 """
@@ -317,6 +337,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import socket
@@ -339,6 +360,7 @@ from gym_quadruped_tpu_torch.env import ALL_OBS, MixedQuadrupedEnv, QuadrupedEnv
 from gym_quadruped_tpu_torch.env import observables as obslib
 from gym_quadruped_tpu_torch.env.batch import bad_state_mask, quarantine_step, rollout_with_sensors
 from gym_quadruped_tpu_torch.env.state import tensor_fields
+from gym_quadruped_tpu_torch.examples.go2_mpc_locomotion import tick as mpc_tick
 from gym_quadruped_tpu_torch.models.model import (
     GEOM_BOX,
     GEOM_HFIELD,
@@ -2547,20 +2569,6 @@ def mpc_solves(phase=47, B=BATCH):
     return rates['warm']
 
 
-def mpc_tick(mpc, state, ref, warm):
-    """examples/go2_mpc_locomotion.py's tick: the feet and their world
-    Jacobians, one solve (warm when `warm` is given), the torques."""
-    dm = mpc.model
-    m = dm.m
-    kin = kinematics.fk(dm, state.qpos)
-    feet = kin.geom_xpos[:, dm.const('feet_geom_id', lambda: m.feet_geom_id)]
-    jacp, _ = constraints._point_jacobians(dm, kin, kinematics.cdof(dm, kin), feet,
-                                           m.feet_body_id)
-    forces, warm = mpc.solve(state.qpos, state.qvel, feet, state.time, ref,
-                             torch.zeros_like(state.time), warmstart=warm)
-    return mpc.torques(state.qpos, state.qvel, feet, jacp, forces[:, 0], state.time, ref), warm
-
-
 def closed_loop_config():
     """The example's controller: trot of period 0.5 s, 50 cold ADMM
     iterations, 10 warm."""
@@ -4071,6 +4079,303 @@ def tree_phases(spd_fields, newton_fields):
         newton_fields[prefix + 'launches'] = launches['newton_fused']
 
 
+# ---- phase 81: the example drives and the live plotter -----------------------------------
+
+# go2_mpc_locomotion's seconds on the card: 500 steps at B=1 and 100 warm replans
+EXAMPLE_SECONDS = 1.0
+# the window its vx is read over: the last 0.5 s
+EXAMPLE_VX_STEPS = 250
+# the h5py drives' sizes where h5py is installed (aliengo_dataset's episodes and
+# steps, dataset_reproduction's steps), and where the drives write (build/ is
+# not committed)
+EXAMPLE_DATASET = (4, 50)
+EXAMPLE_REPRODUCTION_STEPS = 50
+EXAMPLES_DIR = 'build/examples'
+# the live plotter's frames, and the child's join timeout in MultiLivePlotter.close
+PLOTTER_FRAMES = 100
+PLOTTER_JOIN_S = 2.0
+
+
+def counted_drive(fn):
+    """(fn()'s result, its printed lines, the (SPD, Newton) launches and
+    the host synchronisations of each `QuadrupedEnv.step` in it): the
+    counts set to 0 just before fn and read just after, CUDA's sync debug
+    mode on throughout."""
+    per_step, syncs = [], []
+    step = QuadrupedEnv.step
+    buf = io.StringIO()
+
+    def counted(self, *args, **kwargs):
+        before = spd.launches, nf.launches, len(caught)
+        out = step(self, *args, **kwargs)
+        per_step.append((spd.launches - before[0], nf.launches - before[1]))
+        syncs.append(sum('synchroniz' in str(w.message) for w in caught[before[2]:]))
+        return out
+
+    sync()
+    spd.launches = nf.launches = 0
+    if torch.device(DEVICE).type == 'cuda':
+        torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                mock.patch.object(QuadrupedEnv, 'step', counted), contextlib.redirect_stdout(buf):
+            warnings.simplefilter('always')
+            out = fn()
+    finally:
+        if torch.device(DEVICE).type == 'cuda':
+            torch.cuda.set_sync_debug_mode('default')
+    launches = {'spd_solve': spd.launches, 'newton_fused': nf.launches}
+    all_syncs = sum('synchroniz' in str(w.message) for w in caught)
+    return out, buf.getvalue().splitlines(), launches, per_step, syncs, all_syncs
+
+
+def example_go2_mpc(phase, seconds):
+    """go2_mpc_locomotion.main on the card: its lines, steps/s and solves/s,
+    launches and host syncs per env.step, z, vx over the last
+    EXAMPLE_VX_STEPS against the command, the contact flags; upright and
+    finite. Both kernels against their plain versions on the inputs of one
+    more step from its last state and torques (the Newton kernel at go2's
+    cap of 30, as phase 74 at B=1)."""
+    from gym_quadruped_tpu_torch.examples import go2_mpc_locomotion
+
+    t0 = time.perf_counter()
+    out, lines, launches, per_step, syncs, all_syncs = counted_drive(
+        lambda: go2_mpc_locomotion.main(seconds=seconds, device=DEVICE))
+    total_s = time.perf_counter() - t0
+    for line in lines:
+        log(phase, f'go2_mpc_locomotion: {line}')
+    steps, solves, wall = out['steps'], out['solves'], out['wall']
+    state = out['state']
+    z = float(state.qpos[0, 2])
+    R22 = float(kinematics.quat_to_mat(state.qpos[:, 3:7])[0, 2, 2])
+    vx = float(out['vx'][-EXAMPLE_VX_STEPS:].mean())
+    contacts = out['obs']['contact_state'][0].tolist()
+    log(phase, f'go2_mpc_locomotion --seconds {seconds} on {state.qpos.device}: {steps} steps and '
+               f'{solves} warm solves (and 1 cold) in {wall:.3f} s of loop = '
+               f'{steps / wall:.3f} steps/s, {solves / wall:.3f} solves/s ({total_s:.3f} s with '
+               f'the model, the reset and the cold solve); on {smi()}')
+    log(phase, f'launches: spd_solve {launches["spd_solve"]}, newton_fused '
+               f'{launches["newton_fused"]} (per env.step {sorted(set(per_step))}, the reset\'s '
+               f'step among them); host synchronisations per env.step (sync debug mode) mean '
+               f'{np.mean(syncs):.3f}, max {max(syncs)}; {all_syncs} in the whole drive (its '
+               f'reset, the history\'s one copy and the progress lines among them)')
+    log(phase, f'after {steps} steps: z {z:.4f} m, R22 {R22:.4f}; vx over the last '
+               f'{EXAMPLE_VX_STEPS} steps {vx:.4f} m/s against the command 0.4; contact flags '
+               f'{contacts}')
+    if launches['spd_solve'] == 0 or launches['newton_fused'] == 0:
+        raise AssertionError(f'the MPC drive launched no kernel: {launches}')
+    if any(k != (2, 1) for k in per_step) or len(per_step) != steps:
+        raise AssertionError(f'launches per env.step {sorted(set(per_step))} in '
+                             f'{len(per_step)} steps')
+    if launches != {'spd_solve': 2 * (steps + 1), 'newton_fused': steps + 1}:
+        raise AssertionError(f'the MPC drive launched {launches} in {steps} steps and a reset')
+    if not (np.isfinite(out['qpos']).all() and 0.2 <= z <= 0.35 and R22 > 0.9):
+        raise AssertionError(f'go2 fell or diverged under the MPC drive: z {z}, R22 {R22}')
+
+    _, spds, newtons = kept_kernel_inputs(lambda: out['env'].step(state, out['tau']))
+    spd_fields = spd_at(*spds[0], phase, 'go2_mpc_locomotion\'s last state, its smooth solve')
+    newton = newton_timing(newtons[0], phase, cap=GO2_AGREEMENT_ITERATIONS)
+    newton.update(steps_per_s=steps / wall, solves_per_s=solves / wall)
+    return out, launches, spd_fields, newton
+
+
+def example_sensors(phase):
+    """aliengo_with_sensors.main on the card: its lines, the IMU's reading,
+    the heightmap's and the depth image's ranges; launches per env.step;
+    shapes and finite values. Both kernels against their plain versions on
+    the inputs of one more zero-torque step from its last state (the Newton
+    kernel at a cap of 30, as the other drives at B=1)."""
+    from gym_quadruped_tpu_torch.examples import aliengo_with_sensors
+
+    t0 = time.perf_counter()
+    out, lines, launches, per_step, syncs, _ = counted_drive(
+        lambda: aliengo_with_sensors.main(device=DEVICE))
+    secs = time.perf_counter() - t0
+    for line in lines:
+        log(phase, f'aliengo_with_sensors: {line}')
+    obs = out['obs']
+    hm, depth = obs['height_map_z'][0], out['depth']
+    log(phase, f'aliengo_with_sensors on {out["state"].qpos.device} in {secs:.3f} s: imu_acc '
+               f'{[round(v, 4) for v in obs["imu_acc"][0].tolist()]}, imu_gyro '
+               f'{[round(v, 4) for v in obs["imu_gyro"][0].tolist()]}; height_map_z '
+               f'{tuple(hm.shape)} in [{hm.min().item():.4f}, {hm.max().item():.4f}] m; depth '
+               f'{tuple(depth.shape)} in [{depth.min().item():.4f}, {depth.max().item():.4f}] m; '
+               f'launches per env.step {sorted(set(per_step))}, host syncs per env.step mean '
+               f'{np.mean(syncs):.3f}; on {smi()}')
+    finite = all(bool(torch.isfinite(obs[n]).all()) for n in obs) and bool(
+        torch.isfinite(depth).all())
+    if not finite or hm.shape != (100,) or depth.shape != (48, 64) or \
+            any(k != (2, 1) for k in per_step) or launches['newton_fused'] == 0:
+        raise AssertionError(f'aliengo_with_sensors: finite {finite}, heightmap {tuple(hm.shape)}, '
+                             f'depth {tuple(depth.shape)}, launches {launches}, per step '
+                             f'{sorted(set(per_step))}')
+
+    state = out['state']
+    tau = torch.zeros(1, out['env'].model.m.nu, dtype=state.qpos.dtype, device=state.qpos.device)
+    gen = torch.Generator(device=state.qpos.device).manual_seed(SEED)
+    _, spds, newtons = kept_kernel_inputs(lambda: out['env'].step(state, tau, gen))
+    spd_fields = spd_at(*spds[0], phase, 'aliengo_with_sensors\' last state, its smooth solve')
+    newton = newton_timing(newtons[0], phase, cap=GO2_AGREEMENT_ITERATIONS)
+    return launches, spd_fields, newton
+
+
+def example_plotter(phase, out):
+    """The live plotter fed go2's torques and joint positions from the MPC
+    drive (tensors on the card: `send_data` turns them into floats): each
+    child process exits with code 0 within its join timeout."""
+    from gym_quadruped_tpu_torch.utils.live_plotter import MujocoPlotter
+
+    try:
+        import matplotlib  # noqa: F401
+        mode = 'with matplotlib (its figure, or the sink where none can be had)'
+    except ImportError:
+        mode = 'in sink mode (no matplotlib on this machine)'
+    plotter = MujocoPlotter()
+    plotter.torque_plot()
+    plotter.jointpos_plot()
+    plotter.start()
+    procs = [fig._proc for fig in plotter.plots.values()]
+    qpos = torch.as_tensor(out['qpos'][-PLOTTER_FRAMES:], device=DEVICE)
+    tau = out['tau'][0]
+    names = [f'{leg}_{j}' for leg in plotter.LEGS for j in plotter.JOINTS]
+    t0 = time.perf_counter()
+    for q in qpos:
+        plotter.update('Torque', {f'Torque {n}': tau[i] for i, n in enumerate(names)})
+        plotter.update('JointPos', {f'JointPos {n}': q[7 + i] for i, n in enumerate(names)})
+    send_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plotter.close()
+    close_s = time.perf_counter() - t0
+    for proc in procs:
+        proc.join(timeout=10.0)
+    codes = [proc.exitcode for proc in procs]
+    log(phase, f'live plotter {mode}: 2 figures, {2 * len(qpos)} frames of tensors on '
+               f'{qpos.device} sent in {send_s:.3f} s; close() in {close_s:.3f} s (join timeout '
+               f'{PLOTTER_JOIN_S} s each), the children\'s exit codes {codes}')
+    if codes != [0, 0] or close_s >= PLOTTER_JOIN_S:
+        raise AssertionError(f'the plotter\'s children exited with {codes} after {close_s} s')
+
+
+def example_hosts(phase):
+    """What this machine may lack: the RGB and viewer paths need `mujoco`,
+    the two dataset drives h5py. Each is left out, with a line, only where
+    its import fails; else it runs here: Camera.image of the joint tree's
+    trunk camera (the tree written as go2's MJCF under EXAMPLES_DIR; where
+    no GL context can be made, the RuntimeError that names MUJOCO_GL is
+    printed) and aliengo_dataset and dataset_reproduction on the card."""
+    try:
+        import mujoco  # noqa: F401
+    except ImportError:
+        log(phase, 'mujoco is not installed on this machine: the RGB image (Camera.image, '
+                   'Camera.save(rgb=True)) and the viewer (QuadrupedGymEnv.render) are left out '
+                   '(tests/test_torch_render.py holds them against the reference)')
+    else:
+        rgb_image(phase)
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log(phase, 'h5py is not installed on this machine: aliengo_dataset and '
+                   'dataset_reproduction are left out (tests/test_torch_examples.py runs them)')
+        return
+    from gym_quadruped_tpu_torch.examples import aliengo_dataset, dataset_reproduction
+
+    out_dir = Path(EXAMPLES_DIR)
+    episodes, steps = EXAMPLE_DATASET
+    for name, fn in (('aliengo_dataset', lambda: aliengo_dataset.main(
+            episodes, steps, str(out_dir / 'aliengo_dataset.h5'), DEVICE)),
+                     ('dataset_reproduction', lambda: dataset_reproduction.main(
+                         EXAMPLE_REPRODUCTION_STEPS, str(out_dir / 'go2_trot_dataset.h5'),
+                         DEVICE))):
+        t0 = time.perf_counter()
+        (env2, dataset), lines, launches, per_step, _, _ = counted_drive(fn)
+        for line in lines:
+            log(phase, f'{name}: {line}')
+        log(phase, f'{name} in {time.perf_counter() - t0:.3f} s: launches {launches}, per '
+                   f'env.step {sorted(set(per_step))}; the rebuilt env '
+                   f'{env2.robot_name}/{env2.scene_name} on {env2.model.device}, {len(dataset)} '
+                   f'windows')
+        if any(k != (2, 1) for k in per_step) or env2.model.device.type != \
+                torch.device(DEVICE).type:
+            raise AssertionError(f'{name}: launches per env.step {sorted(set(per_step))}, '
+                                 f'env on {env2.model.device}')
+
+
+# Camera.image of the joint tree's trunk camera, in an interpreter of its own
+# (argv: the device, the tree's assets directory): MuJoCo aborts a process at
+# its second failed Renderer, and dataset_reproduction's replay makes one.
+# Prints one JSON object: the image's shape, dtype and range, or the
+# RuntimeError that names MUJOCO_GL where no GL context can be made.
+RGB_CHILD = """
+import json, os, sys
+import torch
+from gym_quadruped_tpu_torch.models import builder
+from gym_quadruped_tpu_torch.models.model import to_device
+from gym_quadruped_tpu_torch.sensors import Camera
+device, os.environ['GYM_QUADRUPED_ASSETS'] = sys.argv[1:3]
+cam = Camera(to_device(builder.build_model('go2', 'flat'), device), 64, 48, cam_name='trunkcam')
+try:
+    image = cam.image(torch.as_tensor(cam.model.m.key_qpos[0], device=device))
+except RuntimeError as e:
+    if 'MUJOCO_GL' not in str(e):
+        raise
+    print(json.dumps({'no_gl': str(e)[:200]}))
+else:
+    print(json.dumps({'shape': list(image.shape), 'dtype': str(image.dtype),
+                      'min': int(image.min()), 'max': int(image.max())}))
+"""
+
+
+def rgb_image(phase):
+    """Camera.image of the joint tree's trunk camera, the tree written as
+    go2's robot MJCF (scripts/torch_port/make_joint_tree.py) with a camera
+    under EXAMPLES_DIR and compiled by the port's builder, in a fresh
+    interpreter (RGB_CHILD)."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        'make_joint_tree', root / 'scripts' / 'torch_port' / 'make_joint_tree.py')
+    mk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mk)
+    path = mk.write_robot_assets(Path(EXAMPLES_DIR).resolve() / 'robot_model')
+    path.write_text(path.read_text().replace(
+        '<site name="imu"', '<camera name="trunkcam" pos="0.25 0 0.05" '
+                            'xyaxes="0 -1 0 0.3 0 1"/><site name="imu"'))
+    child = subprocess.run([sys.executable, '-c', RGB_CHILD, DEVICE, str(path.parents[1])],
+                           cwd=root, capture_output=True, text=True, timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f'Camera.image\'s interpreter exited with {child.returncode}: '
+                             f'{child.stderr[-2000:]}')
+    got = json.loads(child.stdout.splitlines()[-1])
+    if 'no_gl' in got:
+        log(phase, f'Camera.image: no GL context on this machine, left out: {got["no_gl"]}')
+        return
+    log(phase, f'Camera.image of the joint tree\'s trunk camera: {got}')
+    if got['shape'] != [48, 64, 3] or got['dtype'] != 'uint8' or got['max'] == 0:
+        raise AssertionError(f'Camera.image gave {got}')
+
+
+def example_phases(spd_fields, newton_fields):
+    """Phase 81: the example drives on the card (go2_mpc_locomotion,
+    aliengo_with_sensors; the dataset drives and the render paths where
+    their packages are installed) and the live plotter."""
+    phase = 81
+    t0 = time.perf_counter()
+    out, launches, spd_out, newton = example_go2_mpc(phase, EXAMPLE_SECONDS)
+    spd_fields.update({'examples_b1_' + k: v for k, v in spd_out.items()})
+    newton_fields.update({'examples_b1_' + k: v for k, v in newton.items()})
+    spd_fields['examples_launches'] = launches['spd_solve']
+    newton_fields['examples_launches'] = launches['newton_fused']
+    sensors, spd_out, newton = example_sensors(phase)
+    spd_fields.update({'examples_sensors_' + k: v for k, v in spd_out.items()})
+    newton_fields.update({'examples_sensors_' + k: v for k, v in newton.items()})
+    spd_fields['examples_sensors_launches'] = sensors['spd_solve']
+    newton_fields['examples_sensors_launches'] = sensors['newton_fused']
+    example_plotter(phase, out)
+    example_hosts(phase)
+    log(phase, f'phase 81 in {time.perf_counter() - t0:.1f} s')
+
+
 def main():
     try:
         run()
@@ -4103,6 +4408,9 @@ def run():
     parser.add_argument('--tree', action='store_true',
                         help='run phases 1-2, 79 and 80 alone (the general joint tree, on its '
                              'floor and on random_pyramids)')
+    parser.add_argument('--examples', action='store_true',
+                        help='run phases 1-2 and 81 alone (the example drives and the live '
+                             'plotter)')
     args = parser.parse_args()
     # ---- 1. the card ---------------------------------------------------------------
     card()
@@ -4139,7 +4447,7 @@ def run():
     newton_fields = {}
     rates = {}
     if args.terrain or args.sensors or args.mpc or args.robots or args.mixed or args.gym \
-            or args.tree:
+            or args.tree or args.examples:
         if args.terrain:
             terrain_phases(spd_fields, newton_fields, rates)
         elif args.sensors:
@@ -4152,6 +4460,8 @@ def run():
             gym_phases(spd_fields, newton_fields)
         elif args.tree:
             tree_phases(spd_fields, newton_fields)
+        elif args.examples:
+            example_phases(spd_fields, newton_fields)
         else:
             mpc_phases(spd_fields, newton_fields)
         drain()
@@ -4242,6 +4552,9 @@ def run():
     # ---- 79-80. the general joint tree: ball, slide and two joints on a body; both
     # kernels at nv = 21; then on random_pyramids, compiled by the port itself
     tree_phases(spd_fields, newton_fields)
+
+    # ---- 81. the example drives on the card, the live plotter
+    example_phases(spd_fields, newton_fields)
     drain()
 
     log('time', f'seconds per phase (from the last line of the phase before): '

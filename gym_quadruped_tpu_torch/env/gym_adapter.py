@@ -17,8 +17,10 @@ from a `torch.Generator` that the adapter owns on the model's device,
 seeded by `reset(seed=...)` (from numpy's global stream when the
 constructor runs).
 
-For batched simulation use `QuadrupedEnv` itself; the viewer (`render`)
-needs the reference's MJCF assets and is not ported.
+For batched simulation use `QuadrupedEnv` itself. The live viewer
+(`render`) mirrors env 0 into a CPU MuJoCo passive viewer of the display
+model (`models.builder.build_display_mj_model`); it needs `mujoco`, the
+robot's MJCF and a display.
 """
 
 from __future__ import annotations
@@ -148,17 +150,66 @@ class QuadrupedGymEnv(_GYM_BASE):
                                           ref_base_ang_yaw_dot=as_dev([yaw]))
 
     def render(self, mode='human', tint_robot=False, ghost_qpos=None, ghost_alpha=0.5):
-        """The reference's live viewer mirrors the state into a CPU MuJoCo
-        passive viewer of the display model that
-        `models/builder.py::build_display_mj_model` builds from the robot's
-        MJCF assets; neither the assets nor the viewer are ported."""
-        raise NotImplementedError(
-            'render needs the MuJoCo viewer and the display model that '
-            'build_display_mj_model builds from the MJCF assets, which are not in the '
-            'repository')
+        """Live interactive viewer (reference render(), quadruped_env.py:408):
+        mirrors env 0 of the state into a CPU MuJoCo passive viewer of the
+        display model (one host copy), draws the actual and commanded
+        velocity arrows and optional ghost robots, one per row of
+        `ghost_qpos`. The physics stays on the model's device: the viewer's
+        MjData is display-only."""
+        import mujoco
+        import mujoco.viewer as mj_viewer
+
+        from gym_quadruped_tpu_torch.models.builder import build_display_mj_model
+        from gym_quadruped_tpu_torch.utils.mujoco_visual import (
+            change_robot_appearance,
+            render_ghost_robot,
+            render_vector,
+        )
+
+        if not hasattr(self, '_vis'):
+            mj, _ = build_display_mj_model(self.core.robot_name, self.core.scene_name,
+                                           self.core.model.timestep)
+            if tint_robot:
+                change_robot_appearance(mj, alpha=1.0)
+            d = mujoco.MjData(mj)
+            ghost_d = mujoco.MjData(mj)
+            handle = mj_viewer.launch_passive(mj, d, key_callback=self._key_callback)
+            self._vis = {'mj': mj, 'd': d, 'ghost_d': ghost_d, 'viewer': handle,
+                         'arrow_ids': [-1, -1], 'ghost_geoms': {}}
+
+        v = self._vis
+        s = self._state
+        qpos, qvel, ref_lin = (np.asarray(x, np.float64) for x in
+                               self._host([s.qpos, s.qvel, s.ref_base_lin_vel_H]))
+        v['d'].qpos[:] = qpos
+        v['d'].qvel[:] = qvel
+        mujoco.mj_forward(v['mj'], v['d'])
+
+        base_pos = qpos[0:3]
+        vel = qvel[0:3]
+        speed = float(np.linalg.norm(vel) + 1e-9)
+        v['arrow_ids'][0] = render_vector(
+            v['viewer'], vel / speed, base_pos + [0, 0, 0.15], 0.3 * speed,
+            color=[0.2, 0.7, 0.2, 1.0], geom_id=v['arrow_ids'][0])
+        ref_speed = float(np.linalg.norm(ref_lin) + 1e-9)
+        v['arrow_ids'][1] = render_vector(
+            v['viewer'], ref_lin / ref_speed, base_pos + [0, 0, 0.2], 0.3 * ref_speed,
+            color=[0.2, 0.2, 0.9, 1.0], geom_id=v['arrow_ids'][1])
+
+        if ghost_qpos is not None:
+            if isinstance(ghost_qpos, torch.Tensor):
+                ghost_qpos = ghost_qpos.detach().cpu().numpy()
+            for q in np.atleast_2d(np.asarray(ghost_qpos)):
+                v['ghost_geoms'] = render_ghost_robot(
+                    v['viewer'], v['mj'], v['ghost_d'], q, alpha=ghost_alpha,
+                    ghost_geoms=v['ghost_geoms'])
+        v['viewer'].sync()
 
     def close(self):
-        """Nothing to release: there is no viewer."""
+        """Close the viewer, if `render` opened one."""
+        if hasattr(self, '_vis'):
+            self._vis['viewer'].close()
+            del self._vis
 
     # -------------------------------------------------------------- accessors
     # the reference's accessor surface (quadruped_env.py:488-1007), as numpy

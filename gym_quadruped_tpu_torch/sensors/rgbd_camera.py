@@ -15,10 +15,11 @@ and constructor):
     rendered and the gate picks per env, as the reference's vmapped
     `lax.cond` does: envs reset apart keep their own clocks.
 
-RGB goes through a host MuJoCo renderer of the MJCF assets in the
-reference (`image`, `save(rgb=True)`); that host render is not ported, and
-both raise NotImplementedError. `save` writes the depth, seg and point
-cloud files.
+RGB (`image`, `save(rgb=True)`) is a host render, as in the reference: a
+CPU `mujoco.Renderer` of the display model that
+`models.builder.build_display_mj_model` compiles from the robot's MJCF,
+posed at one env's qpos. It needs `mujoco` and a GL backend (EGL or
+OSMesa); `save` writes the depth, seg and point cloud files without them.
 
 MuJoCo's camera convention: it looks along -z, +y up in the image.
 """
@@ -139,25 +140,42 @@ class Camera(Sensor):
         """FK and render from qpos (B, nq)."""
         return self.render(fk(self.model, qpos))
 
-    def image(self, qpos):
-        raise NotImplementedError(
-            'RGB images come from a host MuJoCo render in the reference (Camera.image), '
-            'which is not ported: use depth_image, seg_image or point_cloud')
+    def image(self, qpos) -> np.ndarray:
+        """The (H, W, 3) uint8 RGB image of one env at qpos (nq,), a tensor on
+        any device or an array (reference rgbd_camera.py:176): a host render
+        of the display model, built with its renderer at the first call.
+        Needs a GL backend: raises RuntimeError with guidance where none
+        can be had."""
+        import mujoco
+
+        from gym_quadruped_tpu_torch.models.builder import build_display_mj_model
+
+        if not hasattr(self, '_vis'):
+            m = self.model.m
+            mj, _ = build_display_mj_model(m.robot, m.scene, float(m.timestep))
+            try:
+                renderer = mujoco.Renderer(mj, height=self._height, width=self._width)
+            except Exception as e:  # a host without EGL or OSMesa
+                raise RuntimeError(
+                    'RGB rendering needs an OpenGL backend; set MUJOCO_GL=egl '
+                    'or MUJOCO_GL=osmesa (depth/seg/point_cloud do not — they '
+                    f'ray-cast on device). Underlying error: {e}') from e
+            self._vis = (mj, mujoco.MjData(mj), renderer)
+        mj, d, renderer = self._vis
+        d.qpos[:] = torch.as_tensor(qpos).detach().cpu().numpy().reshape(-1)   # one host copy
+        mujoco.mj_forward(mj, d)
+        renderer.update_scene(d, camera=self.model.m.cam_names[self._cam_id])
+        return renderer.render()
 
     def save(self, out_dir, qpos, rgb: bool = False):
         """Write the depth (.npy and .png), seg (.npy) and point cloud (.npy)
-        of one env at qpos (nq,) into a timestamped directory under
-        `out_dir` (reference rgbd_camera.py:173-191), and return it. The
-        depth image is scaled to [0, 255], near bright. `rgb=True` raises:
-        RGB is a host MuJoCo render of the reference's MJCF assets."""
+        of one env at qpos (nq,), and with `rgb` its RGB image (.png), into a
+        timestamped directory under `out_dir` (reference
+        rgbd_camera.py:173-191), and return it. The depth image is scaled
+        to [0, 255], near bright."""
         import time as _time
         from pathlib import Path
 
-        if rgb:
-            raise NotImplementedError(
-                'Camera.save(rgb=True) needs the RGB image, a host MuJoCo render of the '
-                "reference's MJCF assets (models/builder.py::build_display_mj_model), which "
-                'are not in the repository: save with rgb=False')
         from PIL import Image
 
         q = torch.as_tensor(qpos, dtype=self.model.dtype, device=self.model.device)
@@ -170,6 +188,8 @@ class Camera(Sensor):
         lo, hi = float(depth_e.min()), float(depth_e.max())
         norm = (depth_e - lo) / (hi - lo) if hi > lo else depth_e * 0
         Image.fromarray((255 * (1 - norm)).astype(np.uint8)).save(out / 'depth.png')
+        if rgb:
+            Image.fromarray(self.image(qpos)).save(out / 'rgb.png')
         return out
 
     # ------------------------------------------------------ sensor protocol

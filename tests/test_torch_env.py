@@ -306,20 +306,30 @@ def test_reset_cadence():
     assert bool((wrench[:, [1, 3, 4, 5]] == 0).all())
 
 
-def test_sensors_not_ported():
-    """What still raises with sensors: the camera's RGB `image` and
-    `save(rgb=True)` (a host MuJoCo render in the reference), and an
-    observable that neither the env nor a sensor knows."""
+def test_sensors_not_ported(monkeypatch, tmp_path):
+    """What raises with sensors, as in the reference: the camera's RGB
+    `image` and `save(rgb=True)` (a host MuJoCo render of the display
+    model) where the robot's MJCF is not to be found (aliengo has none in
+    the repository), and an observable that neither the env nor a sensor
+    knows."""
+    from gym_quadruped_tpu.sensors import Camera as JCamera
     from gym_quadruped_tpu_torch.models.model import load_model
     from gym_quadruped_tpu_torch.sensors import Camera, HeightMap
+    monkeypatch.delenv('GYM_QUADRUPED_ASSETS', raising=False)
     dm = load_model('aliengo', 'flat', device='cpu', dtype=torch.float64)
     cam = Camera(dm, 8, 6, cam_name='robotcam')
+    ref = JCamera(jload('aliengo', 'flat'), 8, 6, cam_name='robotcam')
+    # the reference's depth files from the port's cast: only `image` is at stake
+    ref.shoot = lambda q: tuple(x[0].numpy() for x in cam.shoot(torch.as_tensor(q)[None]))
     qpos = torch.as_tensor(dm.m.key_qpos[:1])
     assert cam.depth_image(pfk(dm, qpos)).shape == (1, 6, 8)
-    with pytest.raises(NotImplementedError, match='host MuJoCo render'):
-        cam.image(qpos)
-    with pytest.raises(NotImplementedError, match='host MuJoCo render'):
-        cam.save('unused', qpos[0], rgb=True)
+    raised = []
+    for c, q in ((cam, qpos[0]), (ref, dm.m.key_qpos[0])):
+        for call in (lambda: c.image(q), lambda: c.save(tmp_path, q, rgb=True)):
+            with pytest.raises(Exception) as e:
+                call()
+            raised.append(e.type)
+    assert raised == [FileNotFoundError] * 4
     with pytest.raises(ValueError, match='height_map_x'):
         QuadrupedEnv('aliengo', model=dm, sensors=[HeightMap],
                      state_obs_names=('qpos', 'height_map_z', 'height_map_x'))

@@ -14,7 +14,9 @@ cores allow.
   info to 1e-9, with the reference's types.
 * Every accessor of the reference's surface, in each frame, to 1e-9.
 * `_key_callback` for each keycode, and the clips; the gym spaces; a
-  seeded random reset repeats; `render` raises, `close` is safe.
+  seeded random reset repeats; without go2's MJCF `render` raises what the
+  reference's raises, and `close` is safe before any viewer opened
+  (tests/test_torch_render.py holds the viewer against the reference).
 """
 
 import dataclasses
@@ -246,12 +248,18 @@ def test_seeded_random_reset_repeats(envs):
         env._state, env._fwd = saved, None
 
 
-def test_render_raises_close_safe(envs):
+def test_render_raises_close_safe(envs, monkeypatch):
     jenv, env = envs[:2]
-    with pytest.raises(NotImplementedError, match='build_display_mj_model'):
-        env.render()
-    env.close()
-    env.close()
+    monkeypatch.delenv('GYM_QUADRUPED_ASSETS', raising=False)
+    raised = []
+    for e in (env, jenv):
+        e.close()                   # no viewer yet: nothing to close
+        with pytest.raises(Exception) as info:
+            e.render()
+        raised.append(info.type)
+        assert not hasattr(e, '_vis')
+        e.close()
+    assert raised == [FileNotFoundError] * 2
     with pytest.raises(ImportError, match='morpho_symm'):
         env.obs_group_reps
     with pytest.raises(ImportError, match='morpho_symm'):

@@ -11,7 +11,8 @@
   without morpho_symm, as the reference's do.
 * `Camera.save` on aliengo/flat's robotcam: the same four files as the
   reference's, `.npy` to 1e-9, the png within one grey level;
-  `save(rgb=True)` raises.
+  `save(rgb=True)` raises the reference's exception where aliengo's MJCF
+  is not to be found (tests/test_torch_render.py renders RGB).
 """
 
 import dataclasses
@@ -168,7 +169,8 @@ def test_reps_need_morpho_symm():
         jsym.configure_observation_space_representations('go2', ('qpos', 'qvel'))
 
 
-def test_camera_save(tmp_path):
+def test_camera_save(tmp_path, monkeypatch):
+    monkeypatch.delenv('GYM_QUADRUPED_ASSETS', raising=False)
     jm = jload('aliengo', 'flat')
     dm = to_device(from_arrays({f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)}),
                    'cpu', torch.float64)
@@ -193,5 +195,11 @@ def test_camera_save(tmp_path):
     g, w = (np.asarray(Image.open(d / 'depth.png'), np.int32) for d in (got, want))
     assert g.shape == w.shape == (12, 16)
     assert np.abs(g - w).max() <= 1
-    with pytest.raises(NotImplementedError, match='MJCF assets'):
-        port.save(tmp_path / 'rgb', qpos, rgb=True)
+    # RGB renders the display model of the robot's MJCF, which aliengo lacks
+    # here: the same exception as the reference's
+    raised = []
+    for name, cam in (('port', port), ('ref', ref)):
+        with pytest.raises(Exception) as info:
+            cam.save(tmp_path / f'rgb_{name}', qpos, rgb=True)
+        raised.append(info.type)
+    assert raised == [FileNotFoundError] * 2

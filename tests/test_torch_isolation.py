@@ -3,8 +3,9 @@
 In a fresh interpreter, a meta-path finder refuses `jax`, `jaxlib` and
 `gym_quadruped_tpu` (and their submodules; `gym_quadruped_tpu_torch` is
 allowed) and records every refusal with the file that asked. Then every
-module of `gym_quadruped_tpu_torch` is imported, and `chip_smoke` (the
-script's own imports with it). Nothing may have been refused, and none of
+module of `gym_quadruped_tpu_torch` is imported (the example drives and
+the live plotter among them, which run nothing at import), and
+`chip_smoke` (the script's own imports with it). Nothing may have been refused, and none of
 the refused names may be in `sys.modules`; nor may `mujoco`, which
 `models.builder` and the replay tools import only when called (a GPU host need not
 have it).
@@ -75,7 +76,12 @@ def test_no_jax_and_no_reference_package():
             'gym_quadruped_tpu_torch.parallel.distributed', 'gym_quadruped_tpu_torch.utils.legs',
             'gym_quadruped_tpu_torch.utils.symmetry', 'gym_quadruped_tpu_torch.models.builder',
             'gym_quadruped_tpu_torch.models.scenes', 'gym_quadruped_tpu_torch.utils.replay',
-            'gym_quadruped_tpu_torch.utils.mujoco_visual'} <= names
+            'gym_quadruped_tpu_torch.utils.mujoco_visual',
+            'gym_quadruped_tpu_torch.utils.live_plotter',
+            'gym_quadruped_tpu_torch.examples.go2_mpc_locomotion',
+            'gym_quadruped_tpu_torch.examples.aliengo_with_sensors',
+            'gym_quadruped_tpu_torch.examples.aliengo_dataset',
+            'gym_quadruped_tpu_torch.examples.dataset_reproduction'} <= names
     assert len(names) > 40
     assert res['errors'] == {}, res['errors']
     assert res['refused'] == [], res['refused']

@@ -3,8 +3,8 @@
 The port's closed loop on the CPU: `QuadrupedEnv('go2', scene='flat')`, two
 envs reset from the keyframe (one with its joints moved by a few
 centiradians), 40 env steps with a replan every 5 (cold 50-iteration ADMM
-at step 0, warm 10-iteration replans after), the tick of
-examples/go2_mpc_locomotion.py: fk, cdof, the feet's world Jacobians,
+at step 0, warm 10-iteration replans after), the tick of the port's
+examples/go2_mpc_locomotion.py itself: fk, cdof, the feet's world Jacobians,
 `solve`, `torques`, with per-env forward commands of 0.4 and 0.3 m/s.
 
 * At every replan the reference's tick (`jax.vmap` of the same functions of
@@ -34,12 +34,11 @@ from gym_quadruped_tpu.physics.constraints import _point_jacobians as jjac
 from gym_quadruped_tpu.physics.kinematics import cdof as jcdof
 from gym_quadruped_tpu.physics.kinematics import fk as jfk
 from gym_quadruped_tpu_torch.env import QuadrupedEnv
+from gym_quadruped_tpu_torch.examples.go2_mpc_locomotion import feet_and_jacobians, tick
 from gym_quadruped_tpu_torch.models.model import load_model
 from gym_quadruped_tpu_torch.mpc import CentroidalMPC, GaitConfig, MPCConfig
 from gym_quadruped_tpu_torch.mpc import centroidal as srb
 from gym_quadruped_tpu_torch.mpc.gait import contact_schedule
-from gym_quadruped_tpu_torch.physics.constraints import _point_jacobians
-from gym_quadruped_tpu_torch.physics.kinematics import cdof, fk
 from gym_quadruped_tpu_torch.utils.maths import quat_to_euler_xyz
 from test_mpc_closed_loop import _np_condense, _scipy_qp
 from test_torch_step import _close
@@ -59,15 +58,11 @@ def _one_thread():
 
 
 def _port_tick(dm, mpc, state, ref, warm):
-    m = dm.m
-    kin = fk(dm, state.qpos)
-    feet = kin.geom_xpos[:, torch.as_tensor(m.feet_geom_id)]
-    jacp, _ = _point_jacobians(dm, kin, cdof(dm, kin), feet, m.feet_body_id)
-    yaw_dot = torch.zeros_like(state.time)
-    forces, warm = mpc.solve(state.qpos, state.qvel, feet, state.time, ref, yaw_dot,
-                             warmstart=warm)
-    tau = mpc.torques(state.qpos, state.qvel, feet, jacp, forces[:, 0], state.time, ref)
-    return tau, warm, forces, feet, jacp
+    """The drive's tick; with it the forces of its plan (the ADMM's z, the
+    warm start's second part) and the feet and Jacobians it solved at."""
+    tau, warm = tick(mpc, state, ref, warm)
+    feet, jacp = feet_and_jacobians(dm, state)
+    return tau, warm, warm[1].reshape(len(tau), mpc.cfg.horizon, 4, 3), feet, jacp
 
 
 def _ref_ticks(jm, cfg):
